@@ -1,0 +1,69 @@
+"""Carry state between the JAX package and the port through numpy.
+
+The JAX package stores field elements as radix 2^11 x 24 int32 limbs, the
+port as radix 2^25.5 x 10 (:mod:`quisquis_tpu_torch.ops.field`). These
+helpers convert through canonical integers mod p, on numpy arrays only:
+this module imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .ops import exact as ex
+from .ops import field as fe
+from .ops import point as pt
+
+JAX_BITS = 11
+JAX_NLIMBS = 24
+_JAX_SHIFTS = np.array([JAX_BITS * i for i in range(JAX_NLIMBS)], dtype=object)
+
+
+def _ints_from_jax(limbs: np.ndarray) -> np.ndarray:
+    """[..., 24] int32 (loose radix 2^11) -> object array [...] of ints mod p."""
+    limbs = np.asarray(limbs)
+    if limbs.shape[-1] != JAX_NLIMBS:
+        raise ValueError(f"expected [..., {JAX_NLIMBS}] limbs, got {limbs.shape}")
+    return (limbs.astype(object) << _JAX_SHIFTS).sum(axis=-1) % ex.P
+
+
+def limbs_from_jax(limbs: np.ndarray, device="cuda") -> torch.Tensor:
+    """JAX field limbs [..., 24] -> the port's limbs [..., 10] on device."""
+    vals = _ints_from_jax(limbs)
+    out = fe.from_int_batch(vals.reshape(-1).tolist())
+    return fe.to_tensor(out.reshape(vals.shape + (fe.NLIMBS,)), resolve_device(device))
+
+
+def limbs_to_jax(limbs: torch.Tensor) -> np.ndarray:
+    """The port's limbs [..., 10] -> canonical JAX limbs [..., 24] int32."""
+    shape = tuple(limbs.shape[:-1])
+    vals = np.array(fe.to_int_batch(limbs), dtype=object).reshape(shape)
+    digits = (vals[..., None] >> _JAX_SHIFTS) & ((1 << JAX_BITS) - 1)
+    return digits.astype(np.int32)
+
+
+def ext_point_from_jax(coords, device="cuda") -> pt.ExtPoint:
+    """(x, y, z, t) numpy arrays [..., 24] -> the port's ExtPoint."""
+    return pt.ExtPoint(*(limbs_from_jax(np.asarray(c), device) for c in coords))
+
+
+def ext_point_to_jax(p: pt.ExtPoint):
+    """The port's ExtPoint -> (x, y, z, t) numpy arrays [..., 24]."""
+    return tuple(limbs_to_jax(c) for c in p)
+
+
+def nibbles_from_jax(nibbles: np.ndarray, device="cuda") -> torch.Tensor:
+    """JAX nibble digits [..., 64] (same format in both) -> int32 tensor."""
+    nib = np.asarray(nibbles, dtype=np.int32)
+    if nib.shape[-1] != pt.NWINDOWS or nib.min(initial=0) < 0 or nib.max(initial=0) > 15:
+        raise ValueError("expected [..., 64] digits in [0, 16)")
+    return torch.as_tensor(np.ascontiguousarray(nib), device=resolve_device(device))
+
+
+def niels_table_from_jax(table: np.ndarray, device="cuda") -> torch.Tensor:
+    """The JAX fixed-base table [3*16*24, 64] (rows (coord, entry, limb),
+    columns window) -> the port's layout [64, 16, 3, 10]."""
+    t = np.asarray(table).reshape(3, 16, JAX_NLIMBS, pt.NWINDOWS)
+    return limbs_from_jax(t.transpose(3, 1, 0, 2), device)

@@ -1,0 +1,228 @@
+"""The CUDA sources' arithmetic, compiled for the host with g++.
+
+``field25519.cuh``, ``point25519.cuh`` and the per-lane bodies of
+``scalar_mul.cu`` / ``base_mul.cu`` build as plain C++ (their CUDA-only
+parts sit behind ``#ifdef __CUDACC__``). A small C harness exposes them
+through ctypes; each result must equal the port's ``exact.py`` at the
+canonical value and the plain torch version limb for limb. The kernels
+themselves run only on the GPU (``chip_smoke.py``).
+"""
+
+import ctypes
+import hashlib
+import os
+import random
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from quisquis_tpu_torch.ops import exact as ex
+from quisquis_tpu_torch.ops import field as fe
+from quisquis_tpu_torch.ops import point as pt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(REPO, "quisquis_tpu_torch", "csrc")
+P = ex.P
+
+HARNESS = r"""
+#include "scalar_mul.cu"
+#include "base_mul.cu"
+
+using namespace qq;
+
+static ge ld(const int32_t* p) {
+  ge r;
+  for (int i = 0; i < NL; ++i) {
+    r.x.v[i] = p[i]; r.y.v[i] = p[NL + i]; r.z.v[i] = p[2 * NL + i]; r.t.v[i] = p[3 * NL + i];
+  }
+  return r;
+}
+
+static void st(int32_t* p, const ge& a) {
+  for (int i = 0; i < NL; ++i) {
+    p[i] = a.x.v[i]; p[NL + i] = a.y.v[i]; p[2 * NL + i] = a.z.v[i]; p[3 * NL + i] = a.t.v[i];
+  }
+}
+
+static fe fld(const int32_t* p) { fe r; for (int i = 0; i < NL; ++i) r.v[i] = p[i]; return r; }
+static void fst(int32_t* p, const fe& a) { for (int i = 0; i < NL; ++i) p[i] = a.v[i]; }
+
+extern "C" {
+// op: 0 mul, 1 sq, 2 add, 3 sub, 4 neg, 5 invert, 6 mul_small<2>
+void h_fe(int op, const int32_t* a, const int32_t* b, int32_t* out, int n) {
+  for (int k = 0; k < n; ++k) {
+    const fe x = fld(a + k * NL), y = fld(b + k * NL);
+    fe r;
+    switch (op) {
+      case 0: r = fe_mul(x, y); break;
+      case 1: r = fe_sq(x); break;
+      case 2: r = fe_add(x, y); break;
+      case 3: r = fe_sub(x, y); break;
+      case 4: r = fe_neg(x); break;
+      case 5: r = fe_invert(x); break;
+      default: r = fe_mul_small<2>(x); break;
+    }
+    fst(out + k * NL, r);
+  }
+}
+
+// op: 0 double (T), 1 double (no T), 2 add, 3 scalar_mul (nib = digits)
+void h_ge(int op, const int32_t* p, const int32_t* q, const int32_t* nib, int32_t* out, int n) {
+  for (int k = 0; k < n; ++k) {
+    const ge a = ld(p + k * 4 * NL);
+    ge r;
+    switch (op) {
+      case 0: r = ge_double<true>(a); break;
+      case 1: r = ge_double<false>(a); break;
+      case 2: r = ge_add<true>(a, ld(q + k * 4 * NL)); break;
+      default: r = scalar_mul_lane(nib + k * 64, a); break;
+    }
+    st(out + k * 4 * NL, r);
+  }
+}
+
+void h_base_mul(const int32_t* table, const int32_t* nib, int32_t* out, int n) {
+  for (int k = 0; k < n; ++k) st(out + k * 4 * NL, base_mul_lane(table, nib + k * 64));
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib():
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("g++ is not installed")
+    h = hashlib.sha256(HARNESS.encode())
+    for name in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    out_dir = os.path.join(REPO, "build", "quisquis_tpu_torch_host", h.hexdigest()[:16])
+    so = os.path.join(out_dir, "libqq_host.so")
+    if not os.path.exists(so):
+        os.makedirs(out_dir, exist_ok=True)
+        src = os.path.join(out_dir, "harness.cpp")
+        with open(src, "w") as f:
+            f.write(HARNESS)
+        tmp = f"{so}.{os.getpid()}"
+        subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I", CSRC,
+                        "-o", tmp, src], check=True, capture_output=True, timeout=300)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.h_fe.argtypes = [ci, vp, vp, vp, ci]
+    lib.h_ge.argtypes = [ci, vp, vp, vp, vp, ci]
+    lib.h_base_mul.argtypes = [vp, vp, vp, ci]
+    for fn in (lib.h_fe, lib.h_ge, lib.h_base_mul):
+        fn.restype = None
+    return lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _fe_call(lib, op, a, b):
+    out = np.zeros_like(a)
+    lib.h_fe(op, _ptr(a), _ptr(b), _ptr(out), a.shape[0])
+    return out
+
+
+def _points_np(points) -> np.ndarray:
+    ep = pt.from_exact_batch(points, device="cpu")
+    return np.ascontiguousarray(np.stack([c.numpy() for c in ep], axis=1))
+
+
+def _ext(arr: np.ndarray) -> pt.ExtPoint:
+    return pt.ExtPoint(*(torch.as_tensor(arr[:, i].copy()) for i in range(4)))
+
+
+def _inputs():
+    r = random.Random(4242)
+    xs = [r.randrange(P) for _ in range(28)] + [0, 1, P - 1, P - 19]
+    ys = [r.randrange(P) for _ in range(32)]
+    a, b = fe.from_int_batch(xs), fe.from_int_batch(ys)
+    # every limb at its largest allowed value (non-canonical: value > p)
+    worst = np.array([fe.CONTRACT] * 4, dtype=np.int32)
+    return np.concatenate([a, worst]), np.concatenate([b, worst]), \
+        xs + fe.to_int_batch(worst), ys + fe.to_int_batch(worst)
+
+
+@pytest.mark.parametrize("op,name", [(0, "mul"), (1, "square"), (2, "add"), (3, "sub"),
+                                     (4, "neg"), (6, "mul_small2")])
+def test_field_ops(lib, op, name):
+    a, b, xs, ys = _inputs()
+    got = _fe_call(lib, op, a, b)
+    ref = {
+        "mul": lambda x, y: x * y, "square": lambda x, y: x * x,
+        "add": lambda x, y: x + y, "sub": lambda x, y: x - y,
+        "neg": lambda x, y: -x, "mul_small2": lambda x, y: 2 * x,
+    }[name]
+    assert fe.to_int_batch(got) == [ref(x, y) % P for x, y in zip(xs, ys)]
+    assert all(int(v) <= c for row in got for v, c in zip(row, fe.CONTRACT))
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    plain = {
+        "mul": lambda: fe.mul(ta, tb), "square": lambda: fe.square(ta),
+        "add": lambda: fe.add(ta, tb), "sub": lambda: fe.sub(ta, tb),
+        "neg": lambda: fe.neg(ta), "mul_small2": lambda: fe.mul_small(ta, 2),
+    }[name]()
+    assert np.array_equal(got, plain.numpy())
+
+
+def test_invert(lib):
+    a, b, xs, _ = _inputs()
+    got = _fe_call(lib, 5, a, b)
+    assert fe.to_int_batch(got) == [pow(x, P - 2, P) for x in xs]
+
+
+def test_point_double_add(lib):
+    r = random.Random(99)
+    ps = [ex.pt_base_mul(r.randrange(1, ex.L)) for _ in range(8)]
+    qs = [ex.pt_base_mul(r.randrange(1, ex.L)) for _ in range(8)]
+    pa, qa = _points_np(ps), _points_np(qs)
+    nib = np.zeros((8, 64), dtype=np.int32)
+    for op, ref in ((0, [ex.pt_double(p) for p in ps]),
+                    (2, [ex.pt_add(p, q) for p, q in zip(ps, qs)])):
+        out = np.zeros_like(pa)
+        lib.h_ge(op, _ptr(pa), _ptr(qa), _ptr(nib), _ptr(out), 8)
+        got = pt.to_exact_batch(_ext(out))
+        assert all(ex.pt_eq(g, e) for g, e in zip(got, ref))
+        plain = pt.double(_ext(pa)) if op == 0 else pt.add(_ext(pa), _ext(qa))
+        assert np.array_equal(out, np.stack([c.numpy() for c in plain], axis=1))
+    # without T the doubling keeps the input's T and the same X, Y, Z
+    out = np.zeros_like(pa)
+    lib.h_ge(1, _ptr(pa), _ptr(qa), _ptr(nib), _ptr(out), 8)
+    assert np.array_equal(out[:, 3], pa[:, 3])
+    full = pt.double(_ext(pa))
+    assert np.array_equal(out[:, :3], np.stack([c.numpy() for c in full[:3]], axis=1))
+
+
+def test_scalar_mul_lane(lib):
+    scalars = [0, 1, 15, ex.L - 1, 2**252, int("f" * 63, 16) % ex.L, 7, 2**64]
+    r = random.Random(5)
+    ps = [ex.pt_base_mul(r.randrange(1, ex.L)) for _ in scalars]
+    pa = _points_np(ps)
+    nib = np.ascontiguousarray(pt.scalars_to_nibbles(scalars))
+    out = np.zeros_like(pa)
+    lib.h_ge(3, _ptr(pa), _ptr(pa), _ptr(nib), _ptr(out), len(scalars))
+    enc = pt.compress_to_bytes(_ext(out))
+    for row, s, p in zip(enc, scalars, ps):
+        assert bytes(row) == ex.ristretto_encode(ex.pt_mul(s, p))
+    plain = pt.scalar_mul(torch.as_tensor(nib), _ext(pa))
+    assert np.array_equal(out, np.stack([c.numpy() for c in plain], axis=1))
+
+
+def test_base_mul_lane(lib):
+    scalars = [0, 1, 2, ex.L - 1, 2**252, int("f" * 63, 16) % ex.L, 16, 12345678]
+    nib = np.ascontiguousarray(pt.scalars_to_nibbles(scalars))
+    table = np.ascontiguousarray(pt.niels_base_table_np())
+    out = np.zeros((len(scalars), 4, fe.NLIMBS), dtype=np.int32)
+    lib.h_base_mul(_ptr(table), _ptr(nib), _ptr(out), len(scalars))
+    enc = pt.compress_to_bytes(_ext(out))
+    for row, s in zip(enc, scalars):
+        assert bytes(row) == ex.ristretto_encode(ex.pt_base_mul(s))
+    plain = pt.base_mul(torch.as_tensor(nib))
+    assert np.array_equal(out, np.stack([c.numpy() for c in plain], axis=1))

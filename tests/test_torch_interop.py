@@ -1,0 +1,55 @@
+"""Carrying field elements, points, digits and the fixed-base table between
+the JAX package and the port."""
+
+import random
+
+import numpy as np
+import pytest
+
+from quisquis_tpu.ops import field as jfe
+from quisquis_tpu.ops import point as jpt
+from quisquis_tpu.ops.pallas_point import _niels_base_table
+from quisquis_tpu_torch import interop
+from quisquis_tpu_torch.ops import exact as ex
+from quisquis_tpu_torch.ops import field as fe
+from quisquis_tpu_torch.ops import point as pt
+
+rng = random.Random(2024)
+
+
+def test_limbs_round_trip():
+    xs = [rng.randrange(ex.P) for _ in range(12)] + [0, 1, ex.P - 1, ex.P - 19]
+    jl = jfe.from_int_batch(xs).reshape(2, 8, jfe.NLIMBS)
+    port = interop.limbs_from_jax(jl, device="cpu")
+    assert port.shape == (2, 8, fe.NLIMBS)
+    assert fe.to_int_batch(port) == xs
+    back = interop.limbs_to_jax(port)
+    assert back.dtype == np.int32 and np.array_equal(back, jl)
+    # loose (non-canonical) JAX limbs arrive as their value mod p
+    worst = np.array([jfe.CONTRACT] * 3, dtype=np.int32)
+    assert fe.to_int_batch(interop.limbs_from_jax(worst, device="cpu")) == \
+        jfe.to_int_batch(worst)
+    with pytest.raises(ValueError):
+        interop.limbs_from_jax(np.zeros((2, 10), dtype=np.int32), device="cpu")
+
+
+def test_ext_point_and_nibbles_round_trip():
+    pts = [ex.pt_base_mul(rng.randrange(1, ex.L)) for _ in range(4)]
+    jp = jpt.from_exact_batch(pts)
+    port = interop.ext_point_from_jax([np.asarray(c) for c in jp], device="cpu")
+    assert all(ex.pt_eq(a, b) for a, b in zip(pt.to_exact_batch(port), pts))
+    back = interop.ext_point_to_jax(port)
+    assert all(np.array_equal(a, np.asarray(b)) for a, b in zip(back, jp))
+    nib = jpt.scalars_to_nibbles([rng.randrange(ex.L) for _ in range(4)])
+    assert np.array_equal(interop.nibbles_from_jax(nib, device="cpu").numpy(), nib)
+    with pytest.raises(ValueError):
+        interop.nibbles_from_jax(nib + 16, device="cpu")
+
+
+def test_niels_table_equals_jax():
+    """The port's own fixed-base table equals _niels_base_table() value
+    for value."""
+    carried = interop.niels_table_from_jax(_niels_base_table(), device="cpu")
+    own = pt.niels_base_table_np()
+    assert carried.shape == own.shape == (64, 16, 3, fe.NLIMBS)
+    assert np.array_equal(carried.numpy(), own)

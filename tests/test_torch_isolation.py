@@ -1,0 +1,101 @@
+"""The port imports neither JAX nor the JAX package, and its entry points do
+not carry on on the CPU unless asked to."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# run in a fresh interpreter: tests/conftest.py imports jax in this one
+PROBE = r"""
+import pkgutil, importlib, sys
+import quisquis_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(quisquis_tpu_torch.__path__, "quisquis_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+from quisquis_tpu_torch.accounts.accounts import Account
+from quisquis_tpu_torch.accounts.device_accounts import update_accounts_device
+from quisquis_tpu_torch.accounts.transcript import SeededRng
+from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey, RistrettoSecretKey
+r = SeededRng(seed=b"iso")
+accs = []
+for _ in range(2):
+    pk = RistrettoPublicKey.from_secret_key(RistrettoSecretKey.random(r), r)
+    accs.append(Account.generate_account(pk, r)[0])
+uks = [r.random_scalar() for _ in range(2)]
+cs = [r.random_scalar() for _ in range(2)]
+dev = update_accounts_device(accs, [3, 4], uks, cs, device="cpu")
+host = [Account.update_account(a, b, u, c) for a, b, u, c in zip(accs, [3, 4], uks, cs)]
+assert [a.as_bytes() for a in dev] == [a.as_bytes() for a in host]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "quisquis_tpu"
+             or m.startswith("quisquis_tpu."))
+print("MODULES", len(mods), "FORBIDDEN", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    line = proc.stdout.strip().splitlines()[-1]
+    assert line.endswith("FORBIDDEN []"), line
+    assert int(line.split()[1]) >= 15
+
+
+def test_default_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from quisquis_tpu_torch import entry
+    from quisquis_tpu_torch.accounts.device_accounts import update_accounts_device
+    from quisquis_tpu_torch.device import resolve_device
+    from quisquis_tpu_torch.ops import batch as qb
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        qb.scalars_to_device([1, 2])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        entry.example_inputs(2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        update_accounts_device([], [], [], [])
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _constructors():
+    import numpy as np
+    from quisquis_tpu_torch.ops import exact as ex
+    from quisquis_tpu_torch.ops import field as fe
+    from quisquis_tpu_torch.ops import point as pt
+    b32, b64 = np.zeros((1, 32), np.uint8), np.zeros((1, 64), np.uint8)
+    return {
+        "fe.zeros": lambda **kw: fe.zeros((1,), **kw),
+        "fe.ones": lambda **kw: fe.ones((1,), **kw),
+        "fe.const": lambda **kw: fe.const(5, (1,), **kw),
+        "fe.from_bytes": lambda **kw: fe.from_bytes(b32, **kw),
+        "pt.identity": lambda **kw: pt.identity((1,), **kw),
+        "pt.basepoint": lambda **kw: pt.basepoint((1,), **kw),
+        "pt.from_exact": lambda **kw: pt.from_exact(ex.BASEPOINT, (1,), **kw),
+        "pt.from_exact_batch": lambda **kw: pt.from_exact_batch([ex.BASEPOINT], **kw),
+        "pt.decompress_from_bytes": lambda **kw: pt.decompress_from_bytes(b32, **kw)[1],
+        "pt.from_uniform_bytes": lambda **kw: pt.from_uniform_bytes(b64, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_constructors()))
+def test_constructor_defaults_to_cuda(name):
+    make = _constructors()[name]
+
+    def on(out):
+        return {t.device.type for t in (out if isinstance(out, tuple) else (out,))}
+
+    assert on(make(device="cpu")) == {"cpu"}
+    if torch.cuda.is_available():
+        assert on(make()) == {"cuda"}
+        return
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make()
