@@ -5,7 +5,10 @@
 
 Phases, each printed on its own line:
   1. require a CUDA GPU; print its name and power limit (nvidia-smi);
-  2. build the two CUDA kernels from csrc/ (nvcc, at first use);
+  2. build the six CUDA kernels from csrc/ (nvcc, at first use); meanwhile
+     four worker processes make four aggregated range proofs (n = 64,
+     m = 16) with the port's host prover and check each with the host
+     verifier;
   3. hold each kernel against its plain PyTorch version on the card at
      B = 256 (edge scalars included), and 8 rows against the exact backend;
   4. the main path at N = 16,384 accounts: keys made on the card, the
@@ -19,7 +22,22 @@ Phases, each printed on its own line:
      1,024 lanes (phase 5's width), limb for limb against the plain version
      on the same inputs; times on this card: each kernel and its plain
      version at N = 16,384, end-to-end account updates per second;
-  7. one JSON line per contract with every kernel's numbers, then the
+  7. the MSM kernels (table, window sums, tail) and the Keccak kernel
+     against their plain versions on the card, limb for limb and byte for
+     byte: table at 256 points, window sums and tail at N = 300 and in rows
+     mode at R = 8, k = 200, both MSMs also against the exact backend, the
+     permutation at B = 1, 64, 1,000 also against the host permutation;
+  8. the range verifier at full width: DeviceRangeVerifier(n=64, m=16,
+     batch=64), one MSM of 4,610 points. The 64 lanes repeat the four
+     proofs, each lane with its own random weights. The honest batch
+     verifies; a batch with one byte flipped in one lane (a point, a scalar,
+     an inner-product element, a value commitment in turn) is rejected; the
+     launch counters of that one verify call show the four kernels ran;
+  9. the four kernels at the verifier's own MSM and transcript shapes
+     against their plain versions, and times on this card: each kernel and
+     its plain version, verify wall time and proofs per second, the device's
+     busy share over one profiled call;
+ 10. one JSON line per contract with every kernel's numbers, then the
      final status line.
 
 Any failed check raises, and the script exits non-zero. It also exits
@@ -30,9 +48,12 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 
 import numpy as np
 import torch
@@ -42,6 +63,8 @@ SEED = 20261016
 N_MAIN = 16_384
 B_CHECK = 256
 N_ACCOUNTS = 1_024
+RANGE_N, RANGE_M, RANGE_BATCH = 64, 16, 64   # the verifier's full width
+N_PROOFS = 4                                  # distinct proofs; the lanes repeat them
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 INT32_LANES_PER_SM = 64     # Hopper SM: 4 partitions x 16 INT32 lanes
 # 32x32->64 limb products of one field multiply and one square
@@ -49,10 +72,25 @@ INT32_LANES_PER_SM = 64     # Hopper SM: 4 partitions x 16 INT32 lanes
 PRODUCTS = {"fe_mul": 100, "fe_sq": 55}
 FIELD_OPS = {"scalar_mul": {"fe_mul": 1477, "fe_sq": 1036},
              "base_mul": {"fe_mul": 448, "fe_sq": 0}}
+# per point: the 16-entry table; per point and window: one addition; per lane:
+# the Horner fold (63 x (4 doublings + 1 addition)); per row: the lane tree
+MSM_PRODUCTS = {"table_point": 91 * 100 + 28 * 55, "add": 9 * 100,
+                "tail_lane": 1386 * 100 + 1008 * 55}
+# 64-bit logic operations of one Keccak round (csrc/keccak_f1600.cu): theta 50
+# xors and 5 rotates, rho+pi 24 rotates, chi 75, iota 1. Each is two 32-bit
+# operations: a rotate by a constant is two funnel shifts
+KECCAK_OPS_PER_STATE = 24 * 155 * 2
 KERNELS = {
     "scalar_mul": ("quisquis_tpu_torch/csrc/scalar_mul.cu", "quisquis_tpu/ops/pallas_point.py:79"),
     "base_mul": ("quisquis_tpu_torch/csrc/base_mul.cu", "quisquis_tpu/ops/pallas_point.py:212"),
+    "msm_table": ("quisquis_tpu_torch/csrc/msm_table.cu", "quisquis_tpu/ops/pallas_point.py:286"),
+    "msm_acc": ("quisquis_tpu_torch/csrc/msm_acc.cu", "quisquis_tpu/ops/pallas_point.py:307"),
+    "msm_tail": ("quisquis_tpu_torch/csrc/msm_tail.cu", "quisquis_tpu/ops/pallas_point.py:392"),
+    "keccak_f1600": ("quisquis_tpu_torch/csrc/keccak_f1600.cu",
+                     "quisquis_tpu/ops/pallas_keccak.py:44"),
 }
+SLICE1 = ("scalar_mul", "base_mul")
+SLICE2 = ("msm_table", "msm_acc", "msm_tail", "keccak_f1600")
 
 
 def check(cond, what: str) -> None:
@@ -97,10 +135,10 @@ def time_once(fn):
     return out, start.elapsed_time(end)
 
 
-def profile_line(fn, card: str) -> str:
+def profile_line(fn, card: str, what: str, names) -> str:
     """Device time by kernel and the device's busy share over one call of
     fn, from torch.profiler's kernel events (wall time on the host clock,
-    with the profiler's own overhead)."""
+    with the profiler's own overhead). names: the CUDA kernels to list."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -111,7 +149,8 @@ def profile_line(fn, card: str) -> str:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         return "torch.profiler recorded no device kernels: busy share not measured"
-    by_name = {"scalar_mul_kernel": 0.0, "base_mul_kernel": 0.0, "torch ops": 0.0}
+    by_name = {f"{k}_kernel": 0.0 for k in names}
+    by_name["torch ops"] = 0.0
     spans = []
     for e in kernels:
         key = next((k for k in by_name if k in e.name), "torch ops")
@@ -122,9 +161,25 @@ def profile_line(fn, card: str) -> str:
         busy += max(0.0, t - max(s, end))
         end = max(end, t)
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in by_name.items())
-    return (f"profiled update_accounts: {len(kernels)} kernels; {parts}; device busy "
+    return (f"profiled {what}: {len(kernels)} kernels; {parts}; device busy "
             f"{busy / 1e3:.3f} of {wall_us / 1e3:.3f} ms wall = {busy / wall_us:.3f} "
             f"(idle {1 - busy / wall_us:.3f}) [{card}]")
+
+
+def prove_and_check(i: int):
+    """Worker process: one aggregated range proof (n = 64, m = 16) from the
+    port's host prover, checked by the port's host verifier. Returns the
+    proof's bytes and its value commitments."""
+    sys.path.insert(0, REPO)
+    from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
+    from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
+    prng = SeededRng(seed=b"chip-smoke-range-%d" % i)
+    values = [int.from_bytes(prng.fill_bytes(8), "little") for _ in range(RANGE_M)]
+    blindings = [prng.random_scalar() for _ in range(RANGE_M)]
+    proof, commitments = RangeProof.prove_multiple(Transcript(b"RangeProof"), values,
+                                                   blindings, RANGE_N, rng=prng)
+    proof.verify_multiple(Transcript(b"RangeProof"), commitments, RANGE_N)  # raises if wrong
+    return proof.to_bytes(), commitments
 
 
 def main() -> int:
@@ -132,14 +187,29 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    import quisquis_tpu_torch  # noqa: F401  (fails here, before any process starts, outside a checkout)
+    # the host range prover is pure Python and slow: it runs in worker
+    # processes beside phases 2-7, and phase 8 collects the proofs
+    with ProcessPoolExecutor(N_PROOFS, mp_context=get_context("spawn")) as pool:
+        return phases(pool)
+
+
+def phases(pool) -> int:
     from quisquis_tpu_torch.accounts.accounts import Account
     from quisquis_tpu_torch.accounts.device_accounts import (
         create_delta_and_epsilon_accounts_device, update_accounts_device)
     from quisquis_tpu_torch.accounts.transcript import SeededRng
+    from quisquis_tpu_torch.bulletproofs.device_verify import DeviceRangeVerifier
+    from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
     from quisquis_tpu_torch.ops import batch as qb
+    from quisquis_tpu_torch.ops import cuda_build as cb
+    from quisquis_tpu_torch.ops import cuda_keccak as kk
     from quisquis_tpu_torch.ops import cuda_point as kp
+    from quisquis_tpu_torch.ops import device_keccak as dk
     from quisquis_tpu_torch.ops import exact as ex
     from quisquis_tpu_torch.ops import field as fe
+    from quisquis_tpu_torch.ops import keccak as host_keccak
+    from quisquis_tpu_torch.ops import msm as qmsm
     from quisquis_tpu_torch.ops import point as pt
     from quisquis_tpu_torch.primitives.elgamal import ElGamalCommitment
     from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey
@@ -158,9 +228,10 @@ def main() -> int:
            f"{max_sm_mhz} MHz; torch {torch.__version__} CUDA {torch.version.cuda}")
 
     # -- phase 2 --------------------------------------------------------
-    kp.load_library()
-    say(2, f"kernels built or loaded in {kp.build_seconds():.1f} s")
-    for line in kp.build_log().splitlines():
+    proving = [pool.submit(prove_and_check, i) for i in range(N_PROOFS)]
+    cb.load_library()
+    say(2, f"{len(cb.KERNEL_SOURCES)} kernels built or loaded in {cb.build_seconds():.1f} s")
+    for line in cb.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
 
@@ -231,17 +302,20 @@ def main() -> int:
         nib_of, (key_b, sk_b, r_b, uk_b, cs_b, v_b, bl_b, vsum_b))
     torch.cuda.synchronize()
 
-    kp.reset_launches()
+    def slice1_launches(since=None):
+        return {k: cb.LAUNCHES[k] - (since[k] if since else 0) for k in SLICE1}
+
+    cb.reset_launches()
     t0 = time.perf_counter()
     gr = kp.base_mul(key_n)
     pk = qb.BatchPk(gr, kp.scalar_mul(sk_n, gr))
-    before = dict(kp.LAUNCHES)
+    before = slice1_launches()
     comm = qb.generate_commitments(pk, r_n, v_n)
     ok0 = qb.verify_commitments(comm, sk_n, v_n)
-    flagship = {k: kp.LAUNCHES[k] - before[k] for k in before}
-    before = dict(kp.LAUNCHES)
+    flagship = slice1_launches(before)
+    before = slice1_launches()
     new_pk, new_comm = qb.update_accounts(pk, comm, bl_n, uk_n, cs_n)
-    per_update = {k: kp.LAUNCHES[k] - before[k] for k in before}
+    per_update = slice1_launches(before)
     ok1 = qb.verify_commitments(new_comm, sk_n, vsum_n)
     ok2 = qb.verify_keypairs(new_pk, sk_n)
     j = int(rng.integers(0, n))
@@ -251,10 +325,12 @@ def main() -> int:
     ok3 = qb.verify_commitments(qb.BatchCommitment(new_comm.c, bad_d), sk_n, vsum_n)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    main_launches = dict(kp.LAUNCHES)
+    main_launches = dict(cb.LAUNCHES)
+    check(all(main_launches[k] == 0 for k in SLICE2), "slice 1's path launches no MSM or Keccak")
     check(flagship == {"scalar_mul": 3, "base_mul": 2}, f"flagship launches {flagship}")
     check(per_update == {"scalar_mul": 4, "base_mul": 1}, f"update launches {per_update}")
-    check(main_launches == {"scalar_mul": 11, "base_mul": 6}, f"main launches {main_launches}")
+    check(slice1_launches() == {"scalar_mul": 11, "base_mul": 6},
+          f"main launches {main_launches}")
     check(bool(ok0.all()), "flagship verify: every lane true")
     check(bool(ok1.all()), "verify_commitments after update: every lane true")
     check(bool(ok2.all()), "verify_keypairs after update: every lane true")
@@ -280,7 +356,7 @@ def main() -> int:
     say(4, f"N={n}: keys, flagship step (launches {flagship}), update_accounts "
            f"(launches {per_update}), verify_commitments + verify_keypairs all {n} lanes "
            f"true, tampered lane {j} alone false, 32 lanes == exact; main path launches "
-           f"{main_launches} in {main_s:.3f} s (host clock)")
+           f"{slice1_launches()} in {main_s:.3f} s (host clock)")
 
     # -- phase 5: the Account-object path ---------------------------------
     m = N_ACCOUNTS
@@ -294,7 +370,7 @@ def main() -> int:
     bl5 = [int(x) for x in rng.integers(0, 2**32, size=m)]
     uk5 = [prng.random_scalar() for _ in range(m)]
     cs5 = [prng.random_scalar() for _ in range(m)]
-    kp.reset_launches()
+    cb.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     upd = update_accounts_device(accounts, bl5, uk5, cs5, device="cuda")
@@ -303,7 +379,7 @@ def main() -> int:
     values = [int(x) for x in rng.integers(0, 2**32, size=m)]
     delta, eps, rs5 = create_delta_and_epsilon_accounts_device(
         accounts, values, base_pk, SeededRng(seed=b"chip-smoke-delta"), device="cuda")
-    acct_launches = dict(kp.LAUNCHES)
+    acct_launches = slice1_launches()
     check(acct_launches == {"scalar_mul": 8, "base_mul": 3}, f"account launches {acct_launches}")
     for i in range(16):
         host = Account.update_account(accounts[i], bl5[i], uk5[i], cs5[i])
@@ -326,7 +402,7 @@ def main() -> int:
     main_out = {"scalar_mul": pk.grsk, "base_mul": gr}  # phase 4's own launches
     head_out = {"scalar_mul": kp.scalar_mul(sk_n[:m], pt.ExtPoint(*(c[:m] for c in gr))),
                 "base_mul": kp.base_mul(key_n[:m])}
-    for name in KERNELS:
+    for name in SLICE1:
         e_main = limb_err(main_out[name], plain[name])
         e_head = limb_err(head_out[name], pt.ExtPoint(*(c[:m] for c in plain[name])))
         check(e_main == 0, f"{name} phase-4 output == plain, limb for limb, N={n}")
@@ -341,27 +417,209 @@ def main() -> int:
     lane_bytes = {"scalar_mul": (64 + 8 * fe.NLIMBS) * 4,
                   "base_mul": (64 + 4 * fe.NLIMBS) * 4}
     table_bytes = pt.niels_base_table(dev).numel() * 4
-    for name in KERNELS:
-        ops = n * sum(FIELD_OPS[name][k] * PRODUCTS[k] for k in PRODUCTS)
-        nbytes = n * lane_bytes[name] + (table_bytes if name == "base_mul" else 0)
+
+    def record(phase, name, shape, launches, ops, nbytes, what):
+        """One kernel's line of the contract's JSON, and its printed line;
+        ops at the int32 rate and nbytes at the memory rate give the bound."""
         t_ops, t_bytes = ops / int32_peak * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
         results[name] = {
             "name": name, "route": "cuda", "source": KERNELS[name][0],
-            "replaces": KERNELS[name][1], "launches": main_launches[name],
+            "replaces": KERNELS[name][1], "launches": launches,
             "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
         }
-        say(6, f"{name} N={n}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.2f} ms, "
-               f"bound {results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}: "
-               f"{ops:.4e} 32x32->64 limb products at {int32_peak:.4e}/s), no library "
-               f"call [{card}]")
+        say(phase, f"{name} {shape}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.2f} ms, "
+                   f"bound {results[name]['bound_ms']:.5f} ms ({results[name]['bound_by']}: "
+                   f"{ops:.4e} {what} at {int32_peak:.4e}/s, {nbytes:.4e} bytes at "
+                   f"{MEM_BYTES_PER_S:.3e}/s), no library call [{card}]")
+
+    for name in SLICE1:
+        ops = n * sum(FIELD_OPS[name][k] * PRODUCTS[k] for k in PRODUCTS)
+        nbytes = n * lane_bytes[name] + (table_bytes if name == "base_mul" else 0)
+        record(6, name, f"N={n}", main_launches[name], ops, nbytes, "32x32->64 limb products")
     say(6, f"update_accounts N={n} on device tensors: {upd_ms:.3f} ms = "
            f"{n / upd_ms * 1e3:.1f} account updates/s [{card}]")
-    say(6, profile_line(lambda: qb.update_accounts(pk, comm, bl_n, uk_n, cs_n), card))
+    say(6, profile_line(lambda: qb.update_accounts(pk, comm, bl_n, uk_n, cs_n), card,
+                        "update_accounts", SLICE1))
 
-    # -- phase 7 ----------------------------------------------------------
+    # -- phase 7: the MSM and Keccak kernels against their plain versions ---
+    def same(a: pt.ExtPoint, b: pt.ExtPoint, name: str, what: str) -> None:
+        e = limb_err(a, b)
+        err[name] = max(err.get(name, 0), e)
+        check(e == 0 and a.x.shape == b.x.shape, f"{name} kernel == plain, limb for limb, {what}")
+
+    def scalars_of(nibbles):  # [n, 64] digits -> python ints
+        weights = 16 ** np.arange(64, dtype=object)
+        return [int(v) for v in (nibbles.cpu().numpy().astype(object) * weights).sum(axis=1)]
+
+    def stages_against_plain(nibbles, points, what):
+        """Each MSM stage on the card against its plain version on the same
+        inputs; returns the kernels' result, one point per row."""
+        digits, flat = kp.pad_rows(nibbles, points)
+        rows = nibbles.shape[0]
+        table = kp.msm_table(flat)
+        same(table, qmsm.msm_table(flat), "msm_table", what)
+        sums = kp.msm_window_sums(digits, table, rows)
+        same(sums, qmsm.msm_window_sums(digits, table, rows), "msm_acc", what)
+        out = kp.msm_tail(sums)
+        same(out, qmsm.msm_tail(sums), "msm_tail", what)
+        return out
+
+    p7 = kp.base_mul(nib_of(scalar_bytes(B_CHECK)))
+    same(kp.msm_table(p7), qmsm.msm_table(p7), "msm_table", f"{B_CHECK} points")
+    for rows, k in ((1, 300), (8, 200)):
+        nib7 = nib_of(scalar_bytes(rows * k))
+        pts7 = kp.base_mul(nib_of(scalar_bytes(rows * k)))
+        nib_rk = nib7.reshape(rows, k, 64)
+        pts_rk = pt.ExtPoint(*(c.reshape(rows, k, fe.NLIMBS) for c in pts7))
+        what = f"R={rows} k={k}"
+        out7 = stages_against_plain(nib_rk, pts_rk, what)
+        whole = kp.msm_rows(nib_rk, pts_rk) if rows > 1 else \
+            pt.ExtPoint(*(c[None] for c in kp.msm(nib7, pts7)))
+        same(whole, out7, "msm_tail", f"{what}, msm_rows / msm == the three stages")
+        enc7 = pt.compress_to_bytes(whole)
+        host_s, host_p = scalars_of(nib7), pt.to_exact_batch(pts7)
+        for r in range(rows):
+            want = ex.pt_msm(host_s[r * k:(r + 1) * k], host_p[r * k:(r + 1) * k])
+            check(bytes(enc7[r]) == ex.ristretto_encode(want), f"msm {what} row {r} == exact")
+    err["keccak_f1600"] = 0
+    for b7 in (1, 64, 1000):
+        st7 = torch.as_tensor(rng.integers(0, 256, size=(b7, 200), dtype=np.uint8), device=dev)
+        got7, plain7 = kk.f1600(st7), dk.f1600_plain(st7)
+        err["keccak_f1600"] = max(err["keccak_f1600"],
+                                  int((got7.int() - plain7.int()).abs().max()))
+        check(torch.equal(got7, plain7), f"keccak_f1600 kernel == plain, byte for byte, B={b7}")
+        for row in (0, b7 - 1):
+            host = bytearray(st7[row].cpu().numpy().tobytes())
+            host_keccak.keccak_f1600(host)
+            check(bytes(host) == got7[row].cpu().numpy().tobytes(),
+                  f"keccak_f1600 B={b7} row {row} == host permutation")
+    torch.cuda.synchronize()
+    say(7, f"msm_table at {B_CHECK} points, msm_table / msm_acc / msm_tail at N=300 and at "
+           f"R=8 k=200 == plain versions limb for limb, msm and msm_rows == exact.pt_msm; "
+           f"keccak_f1600 at B=1, 64, 1000 == plain and host permutation byte for byte; "
+           f"max_abs_err { {k: err[k] for k in SLICE2} }")
+
+    # -- phase 8: the range verifier at full width --------------------------
+    t0 = time.perf_counter()
+    proved = [f.result(timeout=900) for f in proving]
+    say(8, f"{N_PROOFS} range proofs (n={RANGE_N}, m={RANGE_M}) from the port's host prover, "
+           f"each accepted by the host verify_multiple (worker processes; waited "
+           f"{time.perf_counter() - t0:.1f} s more for them)")
+    lanes = [proved[i % N_PROOFS] for i in range(RANGE_BATCH)]
+    proofs = [RangeProof.from_bytes(blob) for blob, _ in lanes]
+    commitments = [list(v) for _, v in lanes]
+    drv = DeviceRangeVerifier(RANGE_N, RANGE_M, RANGE_BATCH)
+    n_msm = 2 + 2 * drv.nm + RANGE_BATCH * (RANGE_M + 4 + 2 * drv.k)
+    drv.warmup()
+    wrng = SeededRng(seed=b"chip-smoke-weights")
+    cb.reset_launches()
+    drv.verify(proofs, commitments, rng=wrng)  # raises unless the batch verifies
+    verify_launches = dict(cb.LAUNCHES)
+    check(all(verify_launches[k] > 0 for k in SLICE2), f"verify launches {verify_launches}")
+    check(all(verify_launches[k] == 0 for k in SLICE1), f"verify launches {verify_launches}")
+    check([verify_launches[k] for k in ("msm_table", "msm_acc", "msm_tail")] == [1, 1, 1],
+          f"one MSM per verify: {verify_launches}")
+
+    def flipped(proof, at):
+        blob = bytearray(proof.to_bytes())
+        blob[at] ^= 1
+        return RangeProof.from_bytes(bytes(blob))
+
+    tampers = {"a point (A)": 3, "a scalar (t_x)": 130, "an inner-product element (L_0)": 226}
+    for lane, (what, at) in enumerate(tampers.items(), start=5):
+        bad = list(proofs)
+        bad[lane] = flipped(proofs[lane], at)
+        try:
+            drv.verify(bad, commitments, rng=wrng)
+        except ValueError:
+            continue
+        raise RuntimeError(f"check failed: batch with {what} flipped in lane {lane} was accepted")
+    bad_v = [list(v) for v in commitments]
+    bad_v[9][1] = bytes([bad_v[9][1][0] ^ 1]) + bad_v[9][1][1:]
+    try:
+        drv.verify(proofs, bad_v, rng=wrng)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("check failed: batch with a value commitment flipped was accepted")
+    say(8, f"DeviceRangeVerifier(n={RANGE_N}, m={RANGE_M}, batch={RANGE_BATCH}): one MSM of "
+           f"{n_msm} points; honest batch accepted (launches {verify_launches}); one byte "
+           f"flipped in one lane ({', '.join(tampers)}, a value commitment) rejected each time")
+
+    # -- phase 9: the four kernels at the verifier's own shapes, and times ---
+    seen = {}
+    real_msm, real_f1600 = qmsm.msm, kk.f1600
+
+    def keep_msm(nibbles, points):
+        seen["msm"] = (nibbles, points)
+        return real_msm(nibbles, points)
+
+    def keep_f1600(state):
+        seen["keccak"] = state
+        return real_f1600(state)
+
+    qmsm.msm, kk.f1600 = keep_msm, keep_f1600  # one more verify, to see its kernels' inputs
+    try:
+        drv.verify(proofs, commitments, rng=wrng)
+    finally:
+        qmsm.msm, kk.f1600 = real_msm, real_f1600
+    nib9, pts9 = seen["msm"]
+    check(nib9.shape == (n_msm, 64), f"the verifier's MSM has {nib9.shape[0]} points")
+    digits9, flat9 = kp.pad_rows(nib9[None], pt.ExtPoint(*(c[None] for c in pts9)))
+    n9 = digits9.shape[1]
+    plain9 = {}
+    plain9["msm_table"], plain_ms["msm_table"] = time_once(lambda: qmsm.msm_table(flat9))
+    table9 = kp.msm_table(flat9)
+    same(table9, plain9["msm_table"], "msm_table", f"the verifier's {n9} padded points")
+    plain9["msm_acc"], plain_ms["msm_acc"] = time_once(
+        lambda: qmsm.msm_window_sums(digits9, table9, 1))
+    sums9 = kp.msm_window_sums(digits9, table9, 1)
+    same(sums9, plain9["msm_acc"], "msm_acc", f"the verifier's {n9} padded points")
+    plain9["msm_tail"], plain_ms["msm_tail"] = time_once(lambda: qmsm.msm_tail(sums9))
+    total9 = kp.msm_tail(sums9)
+    same(total9, plain9["msm_tail"], "msm_tail", "the verifier's window sums")
+    check(bool(pt.is_identity(pt.ExtPoint(*(c[0] for c in total9)))),
+          "the honest batch's MSM is the identity")
+    state9 = seen["keccak"]
+    check(tuple(state9.shape) == (RANGE_BATCH, 200), f"transcript states {tuple(state9.shape)}")
+    plain_keccak, plain_ms["keccak_f1600"] = time_once(lambda: dk.f1600_plain(state9))
+    check(torch.equal(kk.f1600(state9), plain_keccak), "keccak_f1600 == plain on a transcript state")
+    ms["msm_table"] = time_ms(lambda: kp.msm_table(flat9), reps=20, warmup=3)
+    ms["msm_acc"] = time_ms(lambda: kp.msm_window_sums(digits9, table9, 1), reps=20, warmup=3)
+    ms["msm_tail"] = time_ms(lambda: kp.msm_tail(sums9), reps=20, warmup=3)
+    ms["keccak_f1600"] = time_ms(lambda: kk.f1600(state9), reps=50, warmup=3)
+    lanes9 = qmsm.MSM_LANES
+    point_bytes, sums_bytes = 4 * fe.NLIMBS * 4, 64 * 4 * fe.NLIMBS * lanes9 * 4
+    shape9 = f"{n_msm} points padded to {n9}"
+    record(9, "msm_table", shape9, verify_launches["msm_table"],
+           n9 * MSM_PRODUCTS["table_point"], n9 * 17 * point_bytes, "32x32->64 limb products")
+    record(9, "msm_acc", shape9, verify_launches["msm_acc"], n9 * 64 * MSM_PRODUCTS["add"],
+           n9 * (64 * 4 + 16 * point_bytes) + sums_bytes, "32x32->64 limb products")
+    record(9, "msm_tail", f"1 row of {lanes9} lanes", verify_launches["msm_tail"],
+           lanes9 * MSM_PRODUCTS["tail_lane"] + (lanes9 - 1) * MSM_PRODUCTS["add"],
+           sums_bytes + point_bytes, "32x32->64 limb products")
+    record(9, "keccak_f1600", f"{RANGE_BATCH} states", verify_launches["keccak_f1600"],
+           RANGE_BATCH * KECCAK_OPS_PER_STATE, RANGE_BATCH * 400, "32-bit logic operations")
+
+    def timed_verify():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        drv.verify(proofs, commitments, rng=wrng)  # ends by fetching the verdict
+        return time.perf_counter() - t
+
+    walls = sorted(timed_verify() for _ in range(7))
+    wall = statistics.median(walls)
+    say(9, f"verify of {RANGE_BATCH} proofs (n={RANGE_N}, m={RANGE_M}), host clock, 7 calls: "
+           f"median {wall * 1e3:.1f} ms (min {walls[0] * 1e3:.1f}, max {walls[-1] * 1e3:.1f}) = "
+           f"{RANGE_BATCH / wall:.1f} range-proof verifications/s; launches per verify "
+           f"{ {k: verify_launches[k] for k in SLICE2} } [{card}]")
+    say(9, profile_line(lambda: drv.verify(proofs, commitments, rng=wrng), card,
+                        "DeviceRangeVerifier.verify", SLICE2))
+
+    # -- phase 10 -----------------------------------------------------------
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

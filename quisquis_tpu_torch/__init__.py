@@ -1,12 +1,17 @@
 """quisquis_tpu_torch: the PyTorch/CUDA port of quisquis_tpu.
 
 Laid out like the JAX package it is ported from:
-  ops/         GF(2^255-19) and ristretto255 in torch (the plain versions),
-               the CUDA kernel wrappers (cuda_point), batched commitments,
-               and its own copy of the exact host backend, Keccak and STROBE
-  primitives/  keys and ElGamal commitments (host objects)
-  accounts/    Account, Merlin transcripts, device-batched account updates
-  csrc/        the CUDA C++ sources, built with nvcc at first use
+  ops/          GF(2^255-19) and ristretto255 in torch (the plain versions),
+                the scalar field mod l, batched Keccak/STROBE/merlin
+                transcripts, the multiscalar multiplication, the CUDA kernel
+                wrappers (cuda_point, cuda_keccak) and their loader
+                (cuda_build), batched commitments, and its own copy of the
+                exact host backend, Keccak and STROBE
+  primitives/   keys, ElGamal commitments and Pedersen generators (host objects)
+  accounts/     Account, Merlin transcripts, device-batched account updates
+  bulletproofs/ host range prover and verifier; the device-batched range
+                verifier (device_verify)
+  csrc/         the CUDA C++ sources, built with nvcc at first use
 
 It imports torch and numpy, never jax, and nothing of quisquis_tpu. Public
 entry points take ``device=`` (default ``"cuda"``) and raise when no GPU is

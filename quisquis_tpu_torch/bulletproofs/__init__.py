@@ -1,0 +1,6 @@
+"""Bulletproofs: generators, inner-product argument, range proofs, and the
+batched range verifier on the device."""
+
+from .generators import BulletproofGens, bulletproof_gens  # noqa: F401
+from .inner_product import InnerProductProof  # noqa: F401
+from .range_proof import RangeProof  # noqa: F401

@@ -47,12 +47,7 @@ QQ_HD ge lookup16(const ge table[16], int32_t digit) {
 // digits: 64 little-endian nibbles of one scalar
 QQ_HD ge scalar_mul_lane(const int32_t* digits, const ge& p) {
   ge table[16];
-  table[0] = ge_identity();
-  table[1] = p;
-  QQ_NOUNROLL
-  for (int k = 2; k < 16; ++k) {
-    table[k] = (k & 1) ? ge_add<true>(table[k - 1], p) : ge_double<true>(table[k >> 1]);
-  }
+  ge_table16(p, table);
   ge acc = lookup16(table, digits[63]);
   QQ_NOUNROLL
   for (int w = 62; w >= 0; --w) {

@@ -1,9 +1,15 @@
 """Carry state between the JAX package and the port through numpy.
 
-The JAX package stores field elements as radix 2^11 x 24 int32 limbs, the
-port as radix 2^25.5 x 10 (:mod:`quisquis_tpu_torch.ops.field`). These
-helpers convert through canonical integers mod p, on numpy arrays only:
-this module imports no JAX.
+The JAX package stores field elements and scalars as radix 2^11 x 24 int32
+limbs; the port stores field elements as radix 2^25.5 x 10 int32
+(:mod:`quisquis_tpu_torch.ops.field`) and scalars as radix 2^28 x 10 int64
+(:mod:`quisquis_tpu_torch.ops.scalar_field`). These helpers convert through
+canonical integers mod p or mod l, on numpy arrays only: this module
+imports no JAX.
+
+The range verifier has no learned state; what it keeps between calls is its
+static generator points (``DeviceRangeVerifier._static``), which
+:func:`ext_point_from_jax` carries across like any other point batch.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from .device import resolve_device
 from .ops import exact as ex
 from .ops import field as fe
 from .ops import point as pt
+from .ops import scalar_field as sf
 
 JAX_BITS = 11
 JAX_NLIMBS = 24
@@ -67,3 +74,36 @@ def niels_table_from_jax(table: np.ndarray, device="cuda") -> torch.Tensor:
     columns window) -> the port's layout [64, 16, 3, 10]."""
     t = np.asarray(table).reshape(3, 16, JAX_NLIMBS, pt.NWINDOWS)
     return limbs_from_jax(t.transpose(3, 1, 0, 2), device)
+
+
+def scalar_limbs_from_jax(limbs: np.ndarray, device="cuda") -> torch.Tensor:
+    """JAX scalar limbs [..., 24] (loose radix 2^11) -> the port's canonical
+    scalar limbs [..., 10] on device."""
+    limbs = np.asarray(limbs)
+    if limbs.shape[-1] != JAX_NLIMBS:
+        raise ValueError(f"expected [..., {JAX_NLIMBS}] limbs, got {limbs.shape}")
+    vals = (limbs.astype(object) << _JAX_SHIFTS).sum(axis=-1)
+    out = sf.from_int_batch(np.asarray(vals, dtype=object).reshape(-1).tolist())
+    return torch.as_tensor(out.reshape(limbs.shape[:-1] + (sf.NLIMBS,)),
+                           device=resolve_device(device))
+
+
+def scalar_limbs_to_jax(limbs: torch.Tensor) -> np.ndarray:
+    """The port's scalar limbs [..., 10] (loose allowed) -> canonical JAX
+    scalar limbs [..., 24] int32."""
+    shape = tuple(limbs.shape[:-1])
+    vals = np.array(sf.to_int_batch(limbs), dtype=object).reshape(shape)
+    return ((vals[..., None] >> _JAX_SHIFTS) & ((1 << JAX_BITS) - 1)).astype(np.int32)
+
+
+def keccak_states_from_jax(states: np.ndarray, device="cuda") -> torch.Tensor:
+    """JAX Keccak/STROBE states [..., 200] int32 byte values -> uint8 tensor."""
+    st = np.asarray(states)
+    if st.shape[-1] != 200 or st.min(initial=0) < 0 or st.max(initial=0) > 255:
+        raise ValueError("expected [..., 200] byte values")
+    return torch.as_tensor(st.astype(np.uint8), device=resolve_device(device))
+
+
+def keccak_states_to_jax(states: torch.Tensor) -> np.ndarray:
+    """The port's uint8 states [..., 200] -> int32 byte values for JAX."""
+    return states.cpu().numpy().astype(np.int32)

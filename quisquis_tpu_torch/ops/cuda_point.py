@@ -1,209 +1,151 @@
-"""Wrappers of the port's two CUDA kernels; the counterpart of the JAX
+"""Wrappers of the port's CUDA point kernels; the counterpart of the JAX
 package's ``ops/pallas_point.py``.
 
 * :func:`scalar_mul` launches ``csrc/scalar_mul.cu`` (variable-base s*P),
-* :func:`base_mul` launches ``csrc/base_mul.cu`` (fixed-base s*B).
+* :func:`base_mul` launches ``csrc/base_mul.cu`` (fixed-base s*B),
+* :func:`msm_table`, :func:`msm_window_sums` and :func:`msm_tail` launch
+  ``csrc/msm_table.cu``, ``csrc/msm_acc.cu`` and ``csrc/msm_tail.cu``, the
+  three stages of a multiscalar multiplication; :func:`msm_rows` and
+  :func:`msm` pad their input and run the three.
 
 For tensors on the CPU each calls its plain version in
-:mod:`quisquis_tpu_torch.ops.point`; for CUDA tensors it launches the kernel
-or raises. Each launch adds one to :data:`LAUNCHES`.
-
-Build: at first use, nvcc compiles each ``.cu`` file (all at once, one
-process each) for ``sm_90a`` and links them into one shared library with a
-plain C interface, loaded with ctypes. The library lives under
-``build/quisquis_tpu_torch/<hash of the sources and flags>/`` beside the
-package, and a file lock lets concurrent processes share one build.
+:mod:`quisquis_tpu_torch.ops.point` or :mod:`quisquis_tpu_torch.ops.msm`;
+for CUDA tensors it launches the kernel or raises. Each launch adds one to
+:data:`LAUNCHES`. :mod:`quisquis_tpu_torch.ops.cuda_build` builds and loads
+the kernels.
 """
 
 from __future__ import annotations
 
-import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-
 import torch
 
 from . import field as fe
+from . import msm as qmsm
 from . import point as pt
-
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-KERNEL_SOURCES = ("scalar_mul.cu", "base_mul.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-NVCC_TIMEOUT_S = 900
-
-#: kernel launches per wrapper; callers may reset them to 0
-LAUNCHES = {"scalar_mul": 0, "base_mul": 0}
-
-_LIB = None
-_BUILD = {"log": "", "seconds": 0.0}
+from .cuda_build import LAUNCHES, check_tensor, launch  # noqa: F401  (LAUNCHES: for callers)
 
 
-def build_root() -> Path:
-    return _PKG.parent / "build" / "quisquis_tpu_torch"
+def _device_kind(t: torch.Tensor, what: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin); "
-                       "the port's CUDA kernels are built from source at first use")
+def _check_point(p: pt.ExtPoint, name: str, shape, device: torch.device) -> None:
+    for c_name, c in zip("xyzt", p):
+        check_tensor(c, f"{name}.{c_name}", shape, device)
 
 
-def _source_key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
-        if path.suffix in (".cu", ".cuh"):
-            h.update(path.name.encode() + path.read_bytes())
-    return h.hexdigest()[:16]
-
-
-def _compile(nvcc: str, out_dir: Path, so: Path) -> str:
-    objs, procs = [], []
-    for src in KERNEL_SOURCES:
-        obj = out_dir / (Path(src).stem + f".{os.getpid()}.o")
-        objs.append(obj)
-        procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    log = []
-    try:
-        for src, proc in procs:
-            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
-            log.append(f"== nvcc {src}\n{out}")
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{out}")
-    finally:
-        for _, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    tmp = so.with_name(so.name + f".{os.getpid()}")
-    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                          timeout=NVCC_TIMEOUT_S)
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stdout}")
-    for obj in objs:
-        obj.unlink()
-    os.replace(tmp, so)
-    return "\n".join(log)
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    out_dir = build_root() / _source_key()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / "libqq_cuda.so"
-    log_path = out_dir / "build.log"
-    with open(build_root() / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not so.exists():
-            log_path.write_text(_compile(nvcc, out_dir, so))
-    lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.qq_scalar_mul.argtypes = [vp] * 9 + [ci, vp]
-    lib.qq_scalar_mul.restype = ci
-    lib.qq_base_mul.argtypes = [vp] * 6 + [ci, vp]
-    lib.qq_base_mul.restype = ci
-    _BUILD["log"] = log_path.read_text() if log_path.exists() else ""
-    _BUILD["seconds"] = time.perf_counter() - t0
-    _LIB = lib
-    return lib
-
-
-def build_log() -> str:
-    """nvcc's output (ptxas registers and spills) for the loaded library."""
-    return _BUILD["log"]
-
-
-def build_seconds() -> float:
-    return _BUILD["seconds"]
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _check(t: torch.Tensor, name: str, cols: int, device: torch.device) -> None:
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dim() != 2 or t.shape[1] != cols:
-        raise ValueError(f"{name}: expected shape [B, {cols}], got {list(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _empty_point(n: int, device: torch.device) -> pt.ExtPoint:
-    return pt.ExtPoint(*(torch.empty((n, fe.NLIMBS), dtype=torch.int32, device=device)
+def _empty_point(shape, device: torch.device) -> pt.ExtPoint:
+    return pt.ExtPoint(*(torch.empty(shape, dtype=torch.int32, device=device)
                          for _ in range(4)))
 
 
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+def _ptrs(p: pt.ExtPoint):
+    return (c.data_ptr() for c in p)
 
 
 def scalar_mul(nibbles: torch.Tensor, p: pt.ExtPoint) -> pt.ExtPoint:
     """s*P per lane: nibbles int32 [B, 64], P coords int32 [B, 10]."""
-    dev = nibbles.device
-    if dev.type == "cpu":
+    if _device_kind(nibbles, "scalar_mul") == "cpu":
         return pt.scalar_mul(nibbles, p)
-    if dev.type != "cuda":
-        raise ValueError(f"scalar_mul: unsupported device {dev}")
-    n = nibbles.shape[0]
-    _check(nibbles, "nibbles", pt.NWINDOWS, dev)
-    for name, c in zip("xyzt", p):
-        _check(c, f"p.{name}", fe.NLIMBS, dev)
-        if c.shape[0] != n:
-            raise ValueError(f"p.{name}: batch {c.shape[0]} != nibbles batch {n}")
-    out = _empty_point(n, dev)
-    if n == 0:
-        return out
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.qq_scalar_mul(nibbles.data_ptr(), *(c.data_ptr() for c in p),
-                               *(c.data_ptr() for c in out), n, stream)
-    _raise_on(rc, "scalar_mul")
-    LAUNCHES["scalar_mul"] += 1
+    dev, n = nibbles.device, nibbles.shape[0]
+    check_tensor(nibbles, "nibbles", (None, pt.NWINDOWS), dev)
+    _check_point(p, "p", (n, fe.NLIMBS), dev)
+    out = _empty_point((n, fe.NLIMBS), dev)
+    if n:
+        launch("scalar_mul", dev, nibbles.data_ptr(), *_ptrs(p), *_ptrs(out), n)
     return out
 
 
 def base_mul(nibbles: torch.Tensor) -> pt.ExtPoint:
     """s*B per lane: nibbles int32 [B, 64]."""
-    dev = nibbles.device
-    if dev.type == "cpu":
+    if _device_kind(nibbles, "base_mul") == "cpu":
         return pt.base_mul(nibbles)
-    if dev.type != "cuda":
-        raise ValueError(f"base_mul: unsupported device {dev}")
-    _check(nibbles, "nibbles", pt.NWINDOWS, dev)
-    n = nibbles.shape[0]
-    out = _empty_point(n, dev)
-    if n == 0:
-        return out
-    table = pt.niels_base_table(dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.qq_base_mul(table.data_ptr(), nibbles.data_ptr(),
-                             *(c.data_ptr() for c in out), n, stream)
-    _raise_on(rc, "base_mul")
-    LAUNCHES["base_mul"] += 1
+    dev, n = nibbles.device, nibbles.shape[0]
+    check_tensor(nibbles, "nibbles", (None, pt.NWINDOWS), dev)
+    out = _empty_point((n, fe.NLIMBS), dev)
+    if n:
+        table = pt.niels_base_table(dev)
+        launch("base_mul", dev, table.data_ptr(), nibbles.data_ptr(), *_ptrs(out), n)
     return out
+
+
+# ---------------------------------------------------------------------------
+# multiscalar multiplication: table -> window sums -> tail
+# ---------------------------------------------------------------------------
+
+def msm_table(p: pt.ExtPoint) -> pt.ExtPoint:
+    """The multiples 0..15 of each point: coords [n, 10] -> [16, 10, n]."""
+    if _device_kind(p.x, "msm_table") == "cpu":
+        return qmsm.msm_table(p)
+    dev, n = p.device, p.x.shape[0]
+    _check_point(p, "p", (n, fe.NLIMBS), dev)
+    out = _empty_point((16, fe.NLIMBS, n), dev)
+    if n:
+        launch("msm_table", dev, *_ptrs(p), *_ptrs(out), n)
+    return out
+
+
+def msm_window_sums(digits: torch.Tensor, table: pt.ExtPoint, rows: int) -> pt.ExtPoint:
+    """Per row, window and lane the sum of digit * P_i over the row's points
+    with i % MSM_LANES equal to the lane. digits int32 [64, n] (0..15), table
+    coords [16, 10, n], n = rows * tiles * MSM_LANES -> coords
+    [rows, 64, 10, MSM_LANES]."""
+    if _device_kind(digits, "msm_window_sums") == "cpu":
+        return qmsm.msm_window_sums(digits, table, rows)
+    dev, n = digits.device, digits.shape[1]
+    if rows < 1 or n % (rows * qmsm.MSM_LANES):
+        raise ValueError(f"msm_window_sums: {n} points are not {rows} rows of whole "
+                         f"{qmsm.MSM_LANES}-lane tiles")
+    check_tensor(digits, "digits", (pt.NWINDOWS, n), dev)
+    _check_point(table, "table", (16, fe.NLIMBS, n), dev)
+    out = _empty_point((rows, pt.NWINDOWS, fe.NLIMBS, qmsm.MSM_LANES), dev)
+    launch("msm_acc", dev, digits.data_ptr(), *_ptrs(table), *_ptrs(out), rows,
+           n // (rows * qmsm.MSM_LANES), qmsm.MSM_LANES)
+    return out
+
+
+def msm_tail(sums: pt.ExtPoint) -> pt.ExtPoint:
+    """Horner fold over the 64 windows and sum over the lanes: coords
+    [rows, 64, 10, MSM_LANES] -> [rows, 10]."""
+    if _device_kind(sums.x, "msm_tail") == "cpu":
+        return qmsm.msm_tail(sums)
+    dev, rows = sums.device, sums.x.shape[0]
+    _check_point(sums, "sums", (rows, pt.NWINDOWS, fe.NLIMBS, qmsm.MSM_LANES), dev)
+    out = _empty_point((rows, fe.NLIMBS), dev)
+    if rows:
+        launch("msm_tail", dev, *_ptrs(sums), *_ptrs(out), rows, qmsm.MSM_LANES)
+    return out
+
+
+def pad_rows(nibbles: torch.Tensor, p: pt.ExtPoint):
+    """nibbles int32 [R, k, 64], points [R, k] -> (digits int32 [64, n], flat
+    points [n]), n = R * k padded: every row is filled up to whole MSM_LANES
+    tiles with zero digits on identity points, which add nothing."""
+    rows, k = nibbles.shape[0], nibbles.shape[1]
+    pad = (-k) % qmsm.MSM_LANES if k else qmsm.MSM_LANES
+    if pad:
+        nibbles = torch.cat([nibbles, nibbles.new_zeros((rows, pad, pt.NWINDOWS))], dim=1)
+        ident = pt.identity((rows, pad), nibbles.device)
+        p = pt.ExtPoint(*(torch.cat([c, e], dim=1) for c, e in zip(p, ident)))
+    n = rows * (k + pad)
+    return (nibbles.reshape(n, pt.NWINDOWS).t().contiguous(),
+            pt.ExtPoint(*(c.reshape(n, fe.NLIMBS).contiguous() for c in p)))
+
+
+def msm_rows(nibbles: torch.Tensor, p: pt.ExtPoint) -> pt.ExtPoint:
+    """One multiscalar multiplication per row: nibbles int32 [R, k, 64] over
+    points [R, k] -> points [R]."""
+    rows = nibbles.shape[0]
+    if rows == 0:
+        return _empty_point((0, fe.NLIMBS), nibbles.device)
+    digits, flat = pad_rows(nibbles, p)
+    return msm_tail(msm_window_sums(digits, msm_table(flat), rows))
+
+
+def msm(nibbles: torch.Tensor, p: pt.ExtPoint) -> pt.ExtPoint:
+    """sum_i s_i * P_i: nibbles int32 [n, 64], points [n] -> one point
+    (coords [10])."""
+    out = msm_rows(nibbles[None], pt.ExtPoint(*(c[None] for c in p)))
+    return pt.ExtPoint(*(c[0] for c in out))

@@ -190,41 +190,53 @@ def to_tensor(limbs: np.ndarray, device) -> torch.Tensor:
 # arithmetic
 # ---------------------------------------------------------------------------
 
-def _reduce(z: torch.Tensor) -> torch.Tensor:
-    """Carry chain on nonnegative int64 limbs [..., 10] -> CONTRACT int32."""
-    limbs = list(z.unbind(-1))
-    for i in CARRY_ORDER:
-        c = limbs[i] >> BITS[i]
-        limbs[i] = limbs[i] & MASKS[i]
-        if i == NLIMBS - 1:
-            limbs[0] = limbs[0] + 19 * c
-        else:
-            limbs[i + 1] = limbs[i + 1] + c
-    return torch.stack(limbs, dim=-1).to(torch.int32)
+def _reduce_(z: torch.Tensor) -> torch.Tensor:
+    """Carry chain on nonnegative int64 limbs [..., 10] -> CONTRACT int32.
+
+    In place, as the trailing underscore says: z is overwritten. Pass only a
+    temporary that an arithmetic expression has just made (a sum, a product),
+    never a tensor anyone else holds and never the bare result of ``.long()``,
+    which is its own argument when that is int64 already.
+
+    The chain's steps (i, i + 4) touch different limbs, so each pair is one
+    strided step: the same integers as carrying limb by limb in CARRY_ORDER."""
+    for i in range(5):
+        pair = z[..., i:i + 5:4]              # limbs i and i + 4, of equal width
+        c = pair >> BITS[i]
+        pair &= MASKS[i]
+        z[..., i + 1:i + 6:4] += c            # limbs i + 1 and i + 5
+    top, low = z[..., NLIMBS - 1], z[..., 0]
+    c = top >> BITS[-1]
+    top &= MASKS[-1]
+    low += 19 * c
+    c = low >> BITS[0]
+    low &= MASKS[0]
+    z[..., 1] += c
+    return z.to(torch.int32)
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _reduce(a.long() + b.long())
+    return _reduce_(a.long() + b.long())
 
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _reduce(a.long() + _bias(a.device) - b.long())
+    return _reduce_(a.long() + _bias(a.device) - b.long())
 
 
 def neg(a: torch.Tensor) -> torch.Tensor:
-    return _reduce(_bias(a.device) - a.long())
+    return _reduce_(_bias(a.device) - a.long())
 
 
 def mul_small(a: torch.Tensor, c: int) -> torch.Tensor:
     if not 0 <= c <= MAX_SMALL:
         raise ValueError(f"mul_small constant {c} outside [0, 2^30]")
-    return _reduce(a.long() * c)
+    return _reduce_(a.long() * c)
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     f, ii, jj = _mul_tables(a.device)
     prod = a.long()[..., :, None] * b.long()[..., None, :] * f
-    return _reduce(prod[..., ii, jj].sum(-1))
+    return _reduce_(prod[..., ii, jj].sum(-1))
 
 
 def square(a: torch.Tensor) -> torch.Tensor:
@@ -329,6 +341,35 @@ def from_bytes(b, device="cuda") -> torch.Tensor:
     b = np.array(b, dtype=np.uint8)
     b[..., 31] &= 0x7F
     return to_tensor(_limbs_from_le_bytes(b), resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_maps(device: torch.device):
+    """Limb i is bits OFF[i] .. OFF[i] + BITS[i] - 1 of the 256-bit value:
+    five bytes from OFF[i] // 8 (past the end: byte 31 again, shifted out of
+    the 40-bit window), then a right shift by OFF[i] % 8 and the limb's mask."""
+    idx = np.array([[o // 8 + k for k in range(5)] for o in OFF])
+    shift = np.where(idx < 32, 8 * np.arange(5)[None, :], 63)
+    return (torch.as_tensor(np.minimum(idx, 31), device=device),
+            torch.as_tensor(shift, device=device),
+            torch.tensor([o % 8 for o in OFF], device=device),
+            _limb_const(tuple(MASKS), device))
+
+
+def from_bytes_tensor(b: torch.Tensor):
+    """Byte values [..., 32] on any device -> (canonical, limbs [..., 10])
+    without leaving it. ``canonical`` is true where the 256-bit value is
+    below p (bit 255 clear included); the limbs ignore bit 255, as
+    :func:`from_bytes` does."""
+    idx, shift, r, masks = _byte_maps(b.device)
+    v = b.long()
+    window = ((v[..., idx] << shift) & 0xFFFFFFFFFF).sum(-1)
+    limbs = ((window >> r) & masks).to(torch.int32)
+    # value mod 2^255 >= p = 2^255 - 19: bytes 1..30 are 0xFF, byte 31 is
+    # 0x7F and byte 0 is at least 0xED
+    ge_p = ((v[..., 0] >= 0xED) & (v[..., 1:31] == 0xFF).all(-1)
+            & ((v[..., 31] & 0x7F) == 0x7F))
+    return ~ge_p & (v[..., 31] < 0x80), limbs
 
 
 # ---------------------------------------------------------------------------

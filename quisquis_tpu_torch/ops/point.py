@@ -311,6 +311,15 @@ def decompress_from_bytes(b, device="cuda"):
     return ok & torch.as_tensor(ok_enc, device=ok.device), p
 
 
+def decompress_bytes_tensor(b: torch.Tensor):
+    """Byte values [..., 32] already on a device -> (ok, ExtPoint) there:
+    :func:`decompress_from_bytes` with the canonical-encoding check in
+    tensor arithmetic, so nothing returns to the host."""
+    ok_enc, s = fe.from_bytes_tensor(b)
+    ok, p = decompress(s)
+    return ok & ok_enc, p
+
+
 # ---------------------------------------------------------------------------
 # elligator one-way map (batched)
 # ---------------------------------------------------------------------------

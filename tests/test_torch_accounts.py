@@ -3,8 +3,11 @@ the JAX package and the port's own host Account methods (mirrors
 tests/test_device_accounts.py): as_bytes()-identical outputs for the same
 SeededRng seeds.
 
-Delta/epsilon creation is compared with the JAX package's device_accounts.
-Updates are compared with its host Account.update_account, which
+Delta/epsilon creation is compared with the JAX package's device_accounts
+and its host Account method, at the batch of 8 that tests/test_torch_batch.py
+also gives the JAX generate_commitments: both files compile that one program
+at one shape, so whichever runs second finds it in the JAX compilation cache.
+Updates are compared with the JAX host Account.update_account, which
 tests/test_device_accounts.py holds byte-identical to its device version;
 this keeps the JAX update program's 26 s compile out of this file."""
 
@@ -69,10 +72,13 @@ def test_delta_epsilon_device_matches_jax_and_host():
         accounts, values, base_pk, SeededRng(seed=b"db"), device="cpu")
     d_h, e_h, rs_h = Account.create_delta_and_epsilon_accounts(
         accounts, values, base_pk, SeededRng(seed=b"db"))
+    jax_accounts, jax_base = to_jax(accounts), JPk.generate_base_pk()
     d_j, e_j, rs_j = jda.create_delta_and_epsilon_accounts_device(
-        to_jax(accounts), values, JPk.generate_base_pk(), JSeededRng(seed=b"db"))
-    assert rs_d == rs_h == rs_j
+        jax_accounts, values, jax_base, JSeededRng(seed=b"db"))
+    d_jh, e_jh, rs_jh = JAccount.create_delta_and_epsilon_accounts(
+        jax_accounts, values, jax_base, JSeededRng(seed=b"db"))
+    assert rs_d == rs_h == rs_j == rs_jh
     assert [a.as_bytes() for a in d_d] == [a.as_bytes() for a in d_h] == \
-        [a.as_bytes() for a in d_j]
+        [a.as_bytes() for a in d_j] == [a.as_bytes() for a in d_jh]
     assert [a.as_bytes() for a in e_d] == [a.as_bytes() for a in e_h] == \
-        [a.as_bytes() for a in e_j]
+        [a.as_bytes() for a in e_j] == [a.as_bytes() for a in e_jh]

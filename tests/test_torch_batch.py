@@ -36,6 +36,19 @@ def state():
     return sks, gr, grsk, rs, vs
 
 
+@pytest.fixture(scope="module")
+def committed(state):
+    """The batch's keys and commitments in the port, made once for the module."""
+    sks, gr, grsk, rs, vs = state
+    pk = qb.BatchPk(pt.from_exact_batch(gr, device="cpu"), pt.from_exact_batch(grsk, device="cpu"))
+    return pk, qb.generate_commitments(pk, _nib(rs), _nib(vs))
+
+
+def _twice(p):
+    """A point batch followed by itself: two checks in one call."""
+    return pt.ExtPoint(*(torch.cat([c, c]) for c in p))
+
+
 def _nib(xs):
     return torch.as_tensor(pt.scalars_to_nibbles(xs))
 
@@ -48,10 +61,9 @@ def _jenc(p):
     return [ex.ristretto_encode(q) for q in jpt.to_exact_batch(p)]
 
 
-def test_generate_verify_matches_jax(state):
+def test_generate_verify_matches_jax(state, committed):
     sks, gr, grsk, rs, vs = state
-    pk = qb.BatchPk(pt.from_exact_batch(gr, device="cpu"), pt.from_exact_batch(grsk, device="cpu"))
-    comm = qb.generate_commitments(pk, _nib(rs), _nib(vs))
+    _, comm = committed
     jpk = jqb.BatchPk(jpt.from_exact_batch(gr), jpt.from_exact_batch(grsk))
     jn = lambda xs: jnp.asarray(pt.scalars_to_nibbles(xs))  # noqa: E731
     jcomm = jqb.generate_commitments(jpk, jn(rs), jn(vs))
@@ -60,28 +72,29 @@ def test_generate_verify_matches_jax(state):
     expected_d = [ex.ristretto_encode(ex.pt_add(ex.pt_base_mul(v), ex.pt_mul(r_, h)))
                   for v, r_, h in zip(vs, rs, grsk)]
     assert _enc(comm.d) == expected_d
-    ok = qb.verify_commitments(comm, _nib(sks), _nib(vs))
-    assert ok.tolist() == [True] * B
-    bad = qb.verify_commitments(comm, _nib(sks), _nib([vs[0] + 1] + vs[1:]))
-    assert bad.tolist() == [False] + [True] * (B - 1)
+    # the right values, then the same lanes with lane 0's value off by one
+    both = qb.verify_commitments(qb.BatchCommitment(_twice(comm.c), _twice(comm.d)),
+                                 _nib(sks + sks), _nib(vs + [vs[0] + 1] + vs[1:]))
+    assert both.tolist() == [True] * B + [False] + [True] * (B - 1)
 
 
-def test_update_scale_add_sub(state):
+def test_update_scale_add_sub(state, committed):
     sks, gr, grsk, rs, vs = state
     r = random.Random(7)
     uks = [r.randrange(ex.L) for _ in range(B)]
     cs = [r.randrange(ex.L) for _ in range(B)]
     bl = [r.randrange(2**32) for _ in range(B)]
-    pk = qb.BatchPk(pt.from_exact_batch(gr, device="cpu"), pt.from_exact_batch(grsk, device="cpu"))
-    comm = qb.generate_commitments(pk, _nib(rs), _nib(vs))
+    pk, comm = committed
     new_pk, new_comm = qb.update_accounts(pk, comm, _nib(bl), _nib(uks), _nib(cs))
     assert _enc(new_pk.gr) == [ex.ristretto_encode(ex.pt_mul(u, p)) for u, p in zip(uks, gr)]
     assert _enc(new_pk.grsk) == [ex.ristretto_encode(ex.pt_mul(u, p)) for u, p in zip(uks, grsk)]
     # the updated account still opens under the same key to v + bl
-    assert qb.verify_keypairs(new_pk, _nib(sks)).tolist() == [True] * B
+    # ... and not under its neighbour's key (second half of the same call)
+    keys_ok = qb.verify_keypairs(qb.BatchPk(_twice(new_pk.gr), _twice(new_pk.grsk)),
+                                 _nib(sks + sks[1:] + sks[:1]))
+    assert keys_ok.tolist() == [True] * B + [False] * B
     vsum = [(v + b) % ex.L for v, b in zip(vs, bl)]
     assert qb.verify_commitments(new_comm, _nib(sks), _nib(vsum)).tolist() == [True] * B
-    assert qb.verify_keypairs(new_pk, _nib(sks[1:] + sks[:1])).tolist() == [False] * B
     scaled = qb.scale_commitments(comm, _nib(uks))
     assert _enc(scaled.c) == [ex.ristretto_encode(ex.pt_mul(u, ex.pt_mul(r_, g)))
                               for u, r_, g in zip(uks, rs, gr)]

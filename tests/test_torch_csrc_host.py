@@ -1,8 +1,9 @@
 """The CUDA sources' arithmetic, compiled for the host with g++.
 
 ``field25519.cuh``, ``point25519.cuh`` and the per-lane bodies of
-``scalar_mul.cu`` / ``base_mul.cu`` build as plain C++ (their CUDA-only
-parts sit behind ``#ifdef __CUDACC__``). A small C harness exposes them
+``scalar_mul.cu``, ``base_mul.cu``, the three MSM kernels and the Keccak
+permutation build as plain C++ (their CUDA-only parts sit behind
+``#ifdef __CUDACC__``). A small C harness exposes them
 through ctypes; each result must equal the port's ``exact.py`` at the
 canonical value and the plain torch version limb for limb. The kernels
 themselves run only on the GPU (``chip_smoke.py``).
@@ -19,8 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from quisquis_tpu_torch.ops import cuda_point as kp
+from quisquis_tpu_torch.ops import device_keccak as dk
 from quisquis_tpu_torch.ops import exact as ex
 from quisquis_tpu_torch.ops import field as fe
+from quisquis_tpu_torch.ops import keccak
+from quisquis_tpu_torch.ops import msm as qmsm
 from quisquis_tpu_torch.ops import point as pt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,8 +33,14 @@ CSRC = os.path.join(REPO, "quisquis_tpu_torch", "csrc")
 P = ex.P
 
 HARNESS = r"""
+#include <string.h>
+#include <vector>
 #include "scalar_mul.cu"
 #include "base_mul.cu"
+#include "msm_table.cu"
+#include "msm_acc.cu"
+#include "msm_tail.cu"
+#include "keccak_f1600.cu"
 
 using namespace qq;
 
@@ -87,6 +98,54 @@ void h_ge(int op, const int32_t* p, const int32_t* q, const int32_t* nib, int32_
 void h_base_mul(const int32_t* table, const int32_t* nib, int32_t* out, int n) {
   for (int k = 0; k < n; ++k) st(out + k * 4 * NL, base_mul_lane(table, nib + k * 64));
 }
+
+// p [n, 4, NL] -> table coordinates [16, NL, n] each
+void h_msm_table(const int32_t* p, int32_t* tx, int32_t* ty, int32_t* tz, int32_t* tt, int n) {
+  for (int i = 0; i < n; ++i) msm_table_lane(ld(p + i * 4 * NL), tx, ty, tz, tt, i, n);
+}
+
+// what msm_acc_kernel does for every (row, window, lane)
+void h_msm_acc(const int32_t* digits, const int32_t* tx, const int32_t* ty, const int32_t* tz,
+               const int32_t* tt, int32_t* wx, int32_t* wy, int32_t* wz, int32_t* wt, int rows,
+               int tiles) {
+  const long n = (long)rows * tiles * MSM_LANES;
+  for (int r = 0; r < rows; ++r)
+    for (int w = 0; w < MSM_WINDOWS; ++w)
+      for (int j = 0; j < MSM_LANES; ++j) {
+        const long first = (long)r * tiles * MSM_LANES + j;
+        const ge acc = msm_acc_lane(digits + w * n, tx, ty, tz, tt, first, tiles, n);
+        ge_store_strided(wx, wy, wz, wt, ((long)r * MSM_WINDOWS + w) * NL * MSM_LANES + j,
+                         MSM_LANES, acc);
+      }
+}
+
+// what msm_tail_kernel does for every row: the lanes' Horner folds, then the
+// tree in the kernel's order (lane j takes lane j + step)
+void h_msm_tail(const int32_t* wx, const int32_t* wy, const int32_t* wz, const int32_t* wt,
+                int32_t* out, int rows) {
+  std::vector<ge> acc(MSM_LANES);
+  for (int r = 0; r < rows; ++r) {
+    for (int j = 0; j < MSM_LANES; ++j) {
+      const long row = (long)r * MSM_WINDOWS * NL * MSM_LANES + j;
+      acc[j] = msm_tail_lane(wx + row, wy + row, wz + row, wt + row);
+    }
+    for (int step = MSM_LANES / 2; step >= 1; step >>= 1)
+      for (int j = 0; j < step; ++j) acc[j] = ge_add<true>(acc[j], acc[j + step]);
+    st(out + r * 4 * NL, acc[0]);
+  }
+}
+
+int h_msm_lanes() { return MSM_LANES; }
+
+// states uint8 [n, 200], little-endian lanes (this harness runs on x86)
+void h_keccak(const uint8_t* in, uint8_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    uint64_t a[25];
+    memcpy(a, in + i * 200, 200);
+    keccak_f1600_lanes(a);
+    memcpy(out + i * 200, a, 200);
+  }
+}
 }
 """
 
@@ -116,8 +175,14 @@ def lib():
     lib.h_fe.argtypes = [ci, vp, vp, vp, ci]
     lib.h_ge.argtypes = [ci, vp, vp, vp, vp, ci]
     lib.h_base_mul.argtypes = [vp, vp, vp, ci]
-    for fn in (lib.h_fe, lib.h_ge, lib.h_base_mul):
+    lib.h_msm_table.argtypes = [vp] * 5 + [ci]
+    lib.h_msm_acc.argtypes = [vp] * 9 + [ci, ci]
+    lib.h_msm_tail.argtypes = [vp] * 5 + [ci]
+    lib.h_keccak.argtypes = [vp, vp, ci]
+    for fn in (lib.h_fe, lib.h_ge, lib.h_base_mul, lib.h_msm_table, lib.h_msm_acc,
+               lib.h_msm_tail, lib.h_keccak):
         fn.restype = None
+    lib.h_msm_lanes.restype = ci
     return lib
 
 
@@ -226,3 +291,58 @@ def test_base_mul_lane(lib):
         assert bytes(row) == ex.ristretto_encode(ex.pt_base_mul(s))
     plain = pt.base_mul(torch.as_tensor(nib))
     assert np.array_equal(out, np.stack([c.numpy() for c in plain], axis=1))
+
+
+def _coords_np(p: pt.ExtPoint):
+    return [np.ascontiguousarray(c.numpy()) for c in p]
+
+
+def test_msm_stages_equal_plain(lib):
+    """The per-lane bodies of msm_table.cu, msm_acc.cu and msm_tail.cu, driven
+    over (row, window, lane) as the kernels' grids are, against the plain
+    versions limb for limb: 2 rows of 2 tiles, the last tile identity padding."""
+    assert lib.h_msm_lanes() == qmsm.MSM_LANES
+    rows, k = 2, qmsm.MSM_LANES + 3
+    r = random.Random(77)
+    scalars = [r.randrange(ex.L) for _ in range(rows * k)]
+    scalars[:4] = [0, 1, ex.L - 1, int("f" * 63, 16) % ex.L]
+    points = [ex.pt_base_mul(r.randrange(1, ex.L)) for _ in range(rows * k)]
+    nib = torch.as_tensor(pt.scalars_to_nibbles(scalars)).reshape(rows, k, 64)
+    flat = pt.from_exact_batch(points, "cpu")
+    digits, padded = kp.pad_rows(nib, pt.ExtPoint(*(c.reshape(rows, k, fe.NLIMBS) for c in flat)))
+    n = padded.x.shape[0]
+    assert n == rows * 2 * qmsm.MSM_LANES
+
+    want_table = qmsm.msm_table(padded)
+    table = [np.zeros((16, fe.NLIMBS, n), dtype=np.int32) for _ in range(4)]
+    p_np = np.ascontiguousarray(np.stack(_coords_np(padded), axis=1))
+    lib.h_msm_table(_ptr(p_np), *map(_ptr, table), n)
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(table, want_table))
+
+    want_sums = qmsm.msm_window_sums(digits, want_table, rows)
+    sums = [np.zeros((rows, 64, fe.NLIMBS, qmsm.MSM_LANES), dtype=np.int32) for _ in range(4)]
+    d_np = np.ascontiguousarray(digits.numpy())
+    lib.h_msm_acc(_ptr(d_np), *map(_ptr, table), *map(_ptr, sums), rows, 2)
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(sums, want_sums))
+
+    want = qmsm.msm_tail(want_sums)
+    out = np.zeros((rows, 4, fe.NLIMBS), dtype=np.int32)
+    lib.h_msm_tail(*map(_ptr, sums), _ptr(out), rows)
+    assert np.array_equal(out, np.stack(_coords_np(want), axis=1))
+    enc = pt.compress_to_bytes(_ext(out))
+    for i in range(rows):
+        exact = ex.pt_msm(scalars[i * k:(i + 1) * k], points[i * k:(i + 1) * k])
+        assert bytes(enc[i]) == ex.ristretto_encode(exact)
+
+
+def test_keccak_permutation_equals_plain_and_host(lib):
+    states = np.random.default_rng(8).integers(0, 256, (5, 200), dtype=np.uint8)
+    states[0] = 0
+    states[1] = 255
+    out = np.zeros_like(states)
+    lib.h_keccak(_ptr(states), _ptr(out), 5)
+    assert np.array_equal(out, dk.f1600_plain(torch.as_tensor(states)).numpy())
+    for row, got in zip(states, out):
+        st_ = bytearray(row.tobytes())
+        keccak.keccak_f1600(st_)
+        assert bytes(st_) == got.tobytes()

@@ -10,8 +10,12 @@ import random
 import pytest
 import torch
 
+from quisquis_tpu_torch.ops import cuda_keccak as kk
 from quisquis_tpu_torch.ops import cuda_point as kp
+from quisquis_tpu_torch.ops import device_keccak as dk
 from quisquis_tpu_torch.ops import exact as ex
+from quisquis_tpu_torch.ops import field as fe
+from quisquis_tpu_torch.ops import msm as qmsm
 from quisquis_tpu_torch.ops import point as pt
 
 pytestmark = pytest.mark.cuda
@@ -36,7 +40,7 @@ def test_kernels_equal_plain_on_a_ragged_batch(dev):
     p = pt.base_mul(torch.flip(nib, dims=(0,)).contiguous())
     before = dict(kp.LAUNCHES)
     k_s, k_b = kp.scalar_mul(nib, p), kp.base_mul(nib)
-    assert kp.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert kp.LAUNCHES == {k: v + (k in ("scalar_mul", "base_mul")) for k, v in before.items()}
     # the same arithmetic in the same order: limb-identical to the plain versions
     assert all(torch.equal(a, b) for a, b in zip(k_s, pt.scalar_mul(nib, p)))
     assert all(torch.equal(a, b) for a, b in zip(k_b, pt.base_mul(nib)))
@@ -56,3 +60,45 @@ def test_wrappers_check_their_inputs(dev):
     before = dict(kp.LAUNCHES)
     empty = kp.scalar_mul(nib[:0], pt.ExtPoint(*(c[:0] for c in p)))
     assert empty.x.shape == (0, 10) and kp.LAUNCHES == before
+
+
+def test_msm_stages_equal_plain_in_rows_mode(dev):
+    rows, k = 3, 150  # two tiles a row, the second mostly identity padding
+    r = random.Random(5)
+    nib = torch.as_tensor(pt.scalars_to_nibbles(_scalars(rows * k)), device=dev)
+    p = kp.base_mul(torch.as_tensor(
+        pt.scalars_to_nibbles([r.randrange(ex.L) for _ in range(rows * k)]), device=dev))
+    nib_rk = nib.reshape(rows, k, 64)
+    p_rk = pt.ExtPoint(*(c.reshape(rows, k, fe.NLIMBS) for c in p))
+    digits, flat = kp.pad_rows(nib_rk, p_rk)
+    before = dict(kp.LAUNCHES)
+    table = kp.msm_table(flat)
+    sums = kp.msm_window_sums(digits, table, rows)
+    out = kp.msm_tail(sums)
+    stages = ("msm_table", "msm_acc", "msm_tail")
+    assert kp.LAUNCHES == {k_: v + (k_ in stages) for k_, v in before.items()}
+    # the same schedule and layouts: limb-identical to the plain versions
+    assert all(torch.equal(a, b) for a, b in zip(table, qmsm.msm_table(flat)))
+    assert all(torch.equal(a, b) for a, b in zip(sums, qmsm.msm_window_sums(digits, table, rows)))
+    assert all(torch.equal(a, b) for a, b in zip(out, qmsm.msm_tail(sums)))
+    assert all(torch.equal(a, b) for a, b in zip(qmsm.msm_rows(nib_rk, p_rk), out))
+    one = qmsm.msm(nib[:k], pt.ExtPoint(*(c[:k] for c in p)))
+    assert all(torch.equal(a, b[0]) for a, b in zip(one, out))
+    with pytest.raises(ValueError):
+        kp.msm_window_sums(digits[:, :-1].contiguous(), table, rows)
+    with pytest.raises(ValueError):
+        kp.msm_tail(pt.ExtPoint(*(c[..., :64].contiguous() for c in sums)))
+
+
+@pytest.mark.parametrize("n", [1, 64, 1000])
+def test_keccak_equals_plain(dev, n):
+    gen = torch.Generator().manual_seed(n)
+    st = torch.randint(0, 256, (n, 200), generator=gen, dtype=torch.uint8).to(dev)
+    before = kp.LAUNCHES["keccak_f1600"]
+    got = kk.f1600(st)
+    assert kp.LAUNCHES["keccak_f1600"] == before + 1
+    assert torch.equal(got, dk.f1600_plain(st)) and torch.equal(dk.f1600(st), got)
+    with pytest.raises(TypeError):
+        kk.f1600(st.int())
+    with pytest.raises(ValueError):
+        kk.f1600(st[:, :100])

@@ -1,18 +1,23 @@
-"""Carrying field elements, points, digits and the fixed-base table between
-the JAX package and the port."""
+"""Carrying field elements, points, digits, the fixed-base table, scalars,
+Keccak states and the range verifier's resident generators between the JAX
+package and the port."""
 
 import random
 
 import numpy as np
 import pytest
 
+from quisquis_tpu.bulletproofs.device_verify import DeviceRangeVerifier as JaxDeviceRangeVerifier
 from quisquis_tpu.ops import field as jfe
 from quisquis_tpu.ops import point as jpt
+from quisquis_tpu.ops import scalar_field as jsf
 from quisquis_tpu.ops.pallas_point import _niels_base_table
 from quisquis_tpu_torch import interop
+from quisquis_tpu_torch.bulletproofs.device_verify import DeviceRangeVerifier
 from quisquis_tpu_torch.ops import exact as ex
 from quisquis_tpu_torch.ops import field as fe
 from quisquis_tpu_torch.ops import point as pt
+from quisquis_tpu_torch.ops import scalar_field as sf
 
 rng = random.Random(2024)
 
@@ -53,3 +58,33 @@ def test_niels_table_equals_jax():
     own = pt.niels_base_table_np()
     assert carried.shape == own.shape == (64, 16, 3, fe.NLIMBS)
     assert np.array_equal(carried.numpy(), own)
+
+
+def test_scalar_limbs_and_keccak_states_round_trip():
+    xs = [rng.randrange(ex.L) for _ in range(9)] + [0, 1, ex.L - 1]
+    jl = jsf.from_int_batch(xs).reshape(3, 4, jsf.NLIMBS)
+    port = interop.scalar_limbs_from_jax(jl, device="cpu")
+    assert port.shape == (3, 4, sf.NLIMBS) and port.dtype == sf.zeros((), "cpu").dtype
+    assert sf.to_int_batch(port) == xs
+    back = interop.scalar_limbs_to_jax(sf.add(port, sf.zeros((3, 4), "cpu")))  # loose limbs
+    assert back.dtype == np.int32 and np.array_equal(back, jl)
+    states = np.random.default_rng(3).integers(0, 256, (2, 5, 200)).astype(np.int32)
+    st = interop.keccak_states_from_jax(states, device="cpu")
+    assert st.shape == (2, 5, 200) and st.numpy().dtype == np.uint8
+    assert np.array_equal(interop.keccak_states_to_jax(st), states)
+    with pytest.raises(ValueError):
+        interop.keccak_states_from_jax(states[..., :100], device="cpu")
+
+
+def test_verifier_static_points_equal_jax():
+    """What the range verifier keeps between calls, its 2 + 2nm resident
+    generator points, is the same in both packages (constructing the JAX
+    verifier compiles nothing)."""
+    n, m = 8, 2
+    theirs = JaxDeviceRangeVerifier(n, m, 3)._static
+    ours = DeviceRangeVerifier(n, m, 3, device="cpu")._static
+    carried = interop.ext_point_from_jax([np.asarray(c) for c in theirs], device="cpu")
+    assert carried.x.shape == ours.x.shape == (2 + 2 * n * m, fe.NLIMBS)
+    assert pt.compress_to_bytes(carried).tobytes() == pt.compress_to_bytes(ours).tobytes()
+    assert all(np.array_equal(a, np.asarray(b))
+               for a, b in zip(interop.ext_point_to_jax(ours), theirs))
