@@ -10,7 +10,9 @@ Phases, each printed on its own line:
      m = 16) with the port's host prover and check each with the host
      verifier;
   3. hold each kernel against its plain PyTorch version on the card at
-     B = 256 (edge scalars included), and 8 rows against the exact backend;
+     B = 256 (edge scalars included: for scalar_mul integers up to
+     2^256 - 1, the identity and points with 8-torsion), and 14 and 8 rows
+     against the exact backend;
   4. the main path at N = 16,384 accounts: keys made on the card, the
      flagship step (generate + verify commitments), update_accounts, then
      verify_commitments and verify_keypairs on the updated state; one
@@ -35,8 +37,8 @@ Phases, each printed on its own line:
      launch counters of that one verify call show the four kernels ran;
   9. the four kernels at the verifier's own MSM and transcript shapes
      against their plain versions, and times on this card: each kernel and
-     its plain version, verify wall time and proofs per second, the device's
-     busy share over one profiled call;
+     its plain version, msm_tail's chain floor, verify wall time and proofs
+     per second, the device's busy share over one profiled call;
  10. one JSON line per contract with every kernel's numbers, then the
      final status line.
 
@@ -70,12 +72,14 @@ INT32_LANES_PER_SM = 64     # Hopper SM: 4 partitions x 16 INT32 lanes
 # 32x32->64 limb products of one field multiply and one square
 # (csrc/field25519.cuh fe_mul, fe_sq), and their counts per lane (csrc notes)
 PRODUCTS = {"fe_mul": 100, "fe_sq": 55}
-FIELD_OPS = {"scalar_mul": {"fe_mul": 1477, "fe_sq": 1036},
+FIELD_OPS = {"scalar_mul": {"fe_mul": 1400, "fe_sq": 1040},
              "base_mul": {"fe_mul": 448, "fe_sq": 0}}
-# per point: the 16-entry table; per point and window: one addition; per lane:
-# the Horner fold (63 x (4 doublings + 1 addition)); per row: the lane tree
+# per point: the 16-entry table; per point and window: one addition; per row:
+# the tail's 64 lane trees, cached totals and Horner chain (csrc/msm_tail.cu)
 MSM_PRODUCTS = {"table_point": 91 * 100 + 28 * 55, "add": 9 * 100,
-                "tail_lane": 1386 * 100 + 1008 * 55}
+                "tail_row": 2538 * 100 + 1008 * 55}
+# the tail's chain: 252 doublings and 64 additions, two dependent rounds each
+TAIL_CHAIN_ROUNDS = 2 * (252 + 64)
 # 64-bit logic operations of one Keccak round (csrc/keccak_f1600.cu): theta 50
 # xors and 5 rotates, rho+pi 24 rotates, chi 75, iota 1. Each is two 32-bit
 # operations: a rotate by a constant is two funnel shifts
@@ -258,6 +262,10 @@ def phases(pool) -> int:
     def limb_err(a: pt.ExtPoint, b: pt.ExtPoint) -> int:
         return max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
 
+    def scalars_of(nibbles):  # [n, 64] digits -> python ints, not reduced mod l
+        weights = 16 ** np.arange(64, dtype=object)
+        return [int(v) for v in (nibbles.cpu().numpy().astype(object) * weights).sum(axis=1)]
+
     # -- phase 3: each kernel against its plain version -------------------
     many15 = int("f" * 63, 16) % ex.L
     edge = [0, 1, ex.L - 1, 2**252, many15, 15, 16, 2**252 - 1]
@@ -265,18 +273,27 @@ def phases(pool) -> int:
     for i, s in enumerate(edge):
         check_b[i] = np.frombuffer(ex.sc_to_bytes(s), dtype=np.uint8)
     nib3 = nib_of(check_b)
+    # scalar_mul takes any 256-bit integer: rows 8-13 carry into the 65th
+    # signed digit, and rows 11-13 act on the identity, a point of order 8
+    # and a point with an 8-torsion component
+    raw = [2**256 - 1, 8 * 16**63 + 12345, 15 * 16**63 + 67890, 2**256 - 1,
+           15 * 16**63 + 1, ex.L - 1]
+    nib_sm = nib3.clone()
+    nib_sm[8:14] = torch.as_tensor([[(v >> (4 * w)) & 15 for w in range(64)] for v in raw],
+                                   dtype=torch.int32, device=dev)
     base3 = pt.base_mul(nib_of(scalar_bytes(B_CHECK)))  # plain torch on the card
+    host_pts = pt.to_exact_batch(pt.ExtPoint(*(c[:14] for c in base3)))
+    t8 = ex.eight_torsion()
+    host_pts[11:14] = [ex.IDENTITY, t8, ex.pt_add(host_pts[13], t8)]
+    for c, e in zip(base3, pt.from_exact_batch(host_pts[11:14], dev)):
+        c[11:14] = e
     err = {}
-    k_out = kp.scalar_mul(nib3, base3)
-    p_out = pt.scalar_mul(nib3, base3)
-    err["scalar_mul"] = canon_err(k_out, p_out)
-    check(pt.compress_to_bytes(k_out).tobytes() == pt.compress_to_bytes(p_out).tobytes(),
-          "scalar_mul kernel == plain at canonical encodings")
-    host_pts = pt.to_exact_batch(pt.ExtPoint(*(c[:8] for c in base3)))
-    k_enc = pt.compress_to_bytes(pt.ExtPoint(*(c[:8] for c in k_out)))
-    for i, s in enumerate(ints_of(check_b, range(8))):
-        check(bytes(k_enc[i]) == ex.ristretto_encode(ex.pt_mul(s, host_pts[i])),
-              f"scalar_mul row {i} == exact")
+    k_out = kp.scalar_mul(nib_sm, base3)
+    err["scalar_mul"] = limb_err(k_out, pt.scalar_mul(nib_sm, base3))
+    check(err["scalar_mul"] == 0, "scalar_mul kernel == plain, limb for limb")
+    got3 = pt.to_exact_batch(pt.ExtPoint(*(c[:14] for c in k_out)))
+    for i, v in enumerate(scalars_of(nib_sm[:14])):
+        check(ex.pt_same(got3[i], ex.pt_mul_int(v, host_pts[i])), f"scalar_mul row {i} == exact")
     k_out = kp.base_mul(nib3)
     p_out = pt.base_mul(nib3)
     err["base_mul"] = canon_err(k_out, p_out)
@@ -289,7 +306,9 @@ def phases(pool) -> int:
     check(max(err.values()) == 0, f"max_abs_err {err}")
     torch.cuda.synchronize()
     say(3, f"kernels == plain versions on the card at B={B_CHECK} (edge scalars "
-           f"included), 8 rows each == exact; max_abs_err {err}")
+           f"included: scalar_mul limb for limb, base_mul at canonical encodings), "
+           f"scalar_mul 14 rows (up to 2^256-1, identity, 8-torsion) and base_mul 8 "
+           f"rows == exact; max_abs_err {err}")
 
     # -- phase 4: the main path at full width -----------------------------
     n = N_MAIN
@@ -450,10 +469,6 @@ def phases(pool) -> int:
         err[name] = max(err.get(name, 0), e)
         check(e == 0 and a.x.shape == b.x.shape, f"{name} kernel == plain, limb for limb, {what}")
 
-    def scalars_of(nibbles):  # [n, 64] digits -> python ints
-        weights = 16 ** np.arange(64, dtype=object)
-        return [int(v) for v in (nibbles.cpu().numpy().astype(object) * weights).sum(axis=1)]
-
     def stages_against_plain(nibbles, points, what):
         """Each MSM stage on the card against its plain version on the same
         inputs; returns the kernels' result, one point per row."""
@@ -599,8 +614,11 @@ def phases(pool) -> int:
     record(9, "msm_acc", shape9, verify_launches["msm_acc"], n9 * 64 * MSM_PRODUCTS["add"],
            n9 * (64 * 4 + 16 * point_bytes) + sums_bytes, "32x32->64 limb products")
     record(9, "msm_tail", f"1 row of {lanes9} lanes", verify_launches["msm_tail"],
-           lanes9 * MSM_PRODUCTS["tail_lane"] + (lanes9 - 1) * MSM_PRODUCTS["add"],
-           sums_bytes + point_bytes, "32x32->64 limb products")
+           MSM_PRODUCTS["tail_row"], sums_bytes + point_bytes, "32x32->64 limb products")
+    say(9, f"msm_tail chain floor: 252 doublings + 64 additions = {TAIL_CHAIN_ROUNDS} "
+           f"dependent rounds of one field product each; {ms['msm_tail'] * 1e3:.1f} us = "
+           f"{ms['msm_tail'] * 1e6 / TAIL_CHAIN_ROUNDS:.0f} ns a round if the chain took it "
+           f"all [{card}]")
     record(9, "keccak_f1600", f"{RANGE_BATCH} states", verify_launches["keccak_f1600"],
            RANGE_BATCH * KECCAK_OPS_PER_STATE, RANGE_BATCH * 400, "32-bit logic operations")
 

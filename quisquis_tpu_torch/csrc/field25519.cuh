@@ -7,7 +7,8 @@
 // 10 int32 limbs of alternately 26 and 25 bits; limb i has weight 2^ceil(25.5 i).
 // Products are 32x32->64 multiplies (IMAD.WIDE) summed in int64 columns, with
 // the x19 fold and the x2 half-bit factor applied to one operand before the
-// product, so the multiply needs no carry chain inside it.
+// product, so the multiply needs no carry chain inside it. The sums of
+// add, sub, neg and small multiples stay below 2^31 and carry in int32.
 //
 // The plain PyTorch version is quisquis_tpu_torch/ops/field.py: same limbs,
 // same carry chain, same bias, so results agree limb for limb. Its docstring
@@ -87,12 +88,6 @@ QQ_CE bool all_le(B10 a, B10 b) {
   return true;
 }
 
-QQ_CE bool fits_i64(B10 a) {
-  for (int i = 0; i < NL; ++i)
-    if (a.v[i] > kI64Max) return false;
-  return true;
-}
-
 QQ_CE unsigned long long factor(int i, int j) {
   return (i + j >= NL ? 19ULL : 1ULL) * (((i & j & 1) != 0) ? 2ULL : 1ULL);
 }
@@ -106,9 +101,11 @@ QQ_CE B10 mul_cols(B10 a, B10 b) {
 }
 
 // the carry chain of reduce(), on upper bounds; true iff no intermediate
-// passes 2^63 - 1 and the result lies within CONTRACT
-QQ_CE bool reduce_ok(B10 b) {
-  if (!fits_i64(b)) return false;
+// passes `max` (2^63 - 1: int64 columns; 2^31 - 1: reduce_small's int32)
+// and the result lies within CONTRACT
+QQ_CE bool reduce_ok(B10 b, unsigned long long max = kI64Max) {
+  for (int i = 0; i < NL; ++i)
+    if (b.v[i] > max) return false;
   const int order[12] = {0, 4, 1, 5, 2, 6, 3, 7, 4, 8, 9, 0};
   for (int s = 0; s < 12; ++s) {
     const int i = order[s];
@@ -116,7 +113,7 @@ QQ_CE bool reduce_ok(B10 b) {
     if (b.v[i] > mask(i)) b.v[i] = mask(i);
     const int to = (i + 1) % NL;
     const unsigned long long add = (i == NL - 1) ? 19 * c : c;
-    if (add > kI64Max - b.v[to]) return false;
+    if (add > max - b.v[to]) return false;
     b.v[to] += add;
   }
   return all_le(b, contract());
@@ -136,11 +133,14 @@ static_assert(bounds::i32_ok(bounds::scaled(bounds::contract(), 4)), "4*limb ove
 // mul/square: every column fits int64 and the carry chain restores CONTRACT
 static_assert(bounds::reduce_ok(bounds::mul_cols(bounds::contract(), bounds::contract())),
               "fe_mul bound");
-// add: a + b
-static_assert(bounds::reduce_ok(bounds::scaled(bounds::contract(), 2)), "fe_add bound");
-// sub/neg: a + 2p - b, with 2p >= CONTRACT limb by limb so no limb goes negative
+// add: a + b, carried in int32
+static_assert(bounds::reduce_ok(bounds::scaled(bounds::contract(), 2), bounds::kI32Max),
+              "fe_add bound");
+// sub/neg: a + 2p - b, with 2p >= CONTRACT limb by limb so no limb goes
+// negative; carried in int32
 static_assert(bounds::all_le(bounds::contract(), bounds::bias()), "bias must dominate");
-static_assert(bounds::reduce_ok(bounds::sum(bounds::contract(), bounds::bias())), "fe_sub bound");
+static_assert(bounds::reduce_ok(bounds::sum(bounds::contract(), bounds::bias()), bounds::kI32Max),
+              "fe_sub bound");
 
 // ---------------------------------------------------------------------------
 // operations
@@ -174,6 +174,35 @@ QQ_HD fe reduce(int64_t z[NL]) {
   return r;
 }
 
+template <int I>
+QQ_HD void carry_small(int32_t z[NL]) {
+  constexpr int b = 26 - (I & 1);
+  const int32_t c = z[I] >> b;
+  z[I] &= (int32_t(1) << b) - 1;
+  if constexpr (I == NL - 1) {
+    z[0] += 19 * c;
+  } else {
+    z[I + 1] += c;
+  }
+}
+
+// reduce() for the sums of add, sub, neg and small multiples, whose limbs
+// and carries fit int32 (the static_asserts above): the same integers with
+// half the instructions and no 64-bit carry propagation
+QQ_HD fe reduce_small(int32_t z[NL]) {
+  carry_small<0>(z); carry_small<4>(z);
+  carry_small<1>(z); carry_small<5>(z);
+  carry_small<2>(z); carry_small<6>(z);
+  carry_small<3>(z); carry_small<7>(z);
+  carry_small<4>(z); carry_small<8>(z);
+  carry_small<9>(z);
+  carry_small<0>(z);
+  fe r;
+  QQ_UNROLL
+  for (int i = 0; i < NL; ++i) r.v[i] = z[i];
+  return r;
+}
+
 QQ_HD constexpr int64_t bias_limb(int i) {
   return i == 0 ? 134217690 : ((i & 1) ? 67108862 : 134217726);  // 2p
 }
@@ -198,34 +227,35 @@ QQ_HD fe fe_d2() {
 }
 
 QQ_HD fe fe_add(const fe& a, const fe& b) {
-  int64_t z[NL];
+  int32_t z[NL];
   QQ_UNROLL
-  for (int i = 0; i < NL; ++i) z[i] = (int64_t)a.v[i] + b.v[i];
-  return reduce(z);
+  for (int i = 0; i < NL; ++i) z[i] = a.v[i] + b.v[i];
+  return reduce_small(z);
 }
 
 QQ_HD fe fe_sub(const fe& a, const fe& b) {
-  int64_t z[NL];
+  int32_t z[NL];
   QQ_UNROLL
-  for (int i = 0; i < NL; ++i) z[i] = (int64_t)a.v[i] + bias_limb(i) - b.v[i];
-  return reduce(z);
+  for (int i = 0; i < NL; ++i) z[i] = a.v[i] + (int32_t)bias_limb(i) - b.v[i];
+  return reduce_small(z);
 }
 
 QQ_HD fe fe_neg(const fe& a) {
-  int64_t z[NL];
+  int32_t z[NL];
   QQ_UNROLL
-  for (int i = 0; i < NL; ++i) z[i] = bias_limb(i) - a.v[i];
-  return reduce(z);
+  for (int i = 0; i < NL; ++i) z[i] = (int32_t)bias_limb(i) - a.v[i];
+  return reduce_small(z);
 }
 
 template <int C>
 QQ_HD fe fe_mul_small(const fe& a) {
   static_assert(C >= 0, "nonnegative constant");
-  static_assert(bounds::reduce_ok(bounds::scaled(bounds::contract(), C)), "fe_mul_small bound");
-  int64_t z[NL];
+  static_assert(bounds::reduce_ok(bounds::scaled(bounds::contract(), C), bounds::kI32Max),
+                "fe_mul_small bound");
+  int32_t z[NL];
   QQ_UNROLL
-  for (int i = 0; i < NL; ++i) z[i] = (int64_t)a.v[i] * C;
-  return reduce(z);
+  for (int i = 0; i < NL; ++i) z[i] = a.v[i] * C;
+  return reduce_small(z);
 }
 
 QQ_HD fe fe_mul(const fe& a, const fe& b) {

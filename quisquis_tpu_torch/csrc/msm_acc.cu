@@ -30,11 +30,12 @@
 
 namespace qq {
 
-// entry `digit` of point i's table (coordinates [16, NL, n]), reading all 16
+// entry `digit` of point i's table (coordinates [16, NL, n]), reading all
+// 16; unrolled so that the entries' loads from L2 overlap
 QQ_HD ge lookup16_strided(const int32_t* tx, const int32_t* ty, const int32_t* tz,
                           const int32_t* tt, long i, long n, int32_t digit) {
   ge r = ge_load_strided(tx, ty, tz, tt, i, n);
-  QQ_NOUNROLL
+  QQ_UNROLL
   for (int k = 1; k < 16; ++k) {
     ge_cmov(r, ge_load_strided(tx, ty, tz, tt, (long)k * NL * n + i, n), eq_mask(k, digit));
   }

@@ -19,19 +19,6 @@ namespace qq {
 constexpr int MSM_LANES = 128;
 constexpr int MSM_WINDOWS = 64;
 
-// limb i of the element at p[i * stride]
-QQ_HD fe fe_load_strided(const int32_t* p, long stride) {
-  fe r;
-  QQ_UNROLL
-  for (int i = 0; i < NL; ++i) r.v[i] = p[i * stride];
-  return r;
-}
-
-QQ_HD void fe_store_strided(int32_t* p, long stride, const fe& a) {
-  QQ_UNROLL
-  for (int i = 0; i < NL; ++i) p[i * stride] = a.v[i];
-}
-
 QQ_HD ge ge_load_strided(const int32_t* x, const int32_t* y, const int32_t* z, const int32_t* t,
                          long off, long stride) {
   return ge{fe_load_strided(x + off, stride), fe_load_strided(y + off, stride),

@@ -126,6 +126,19 @@ QQ_HD void fe_store(int32_t* p, long lane, const fe& a) {
   for (int i = 0; i < NL; ++i) p[lane * NL + i] = a.v[i];
 }
 
+// limb i of the element at p[i * stride]
+QQ_HD fe fe_load_strided(const int32_t* p, long stride) {
+  fe r;
+  QQ_UNROLL
+  for (int i = 0; i < NL; ++i) r.v[i] = p[i * stride];
+  return r;
+}
+
+QQ_HD void fe_store_strided(int32_t* p, long stride, const fe& a) {
+  QQ_UNROLL
+  for (int i = 0; i < NL; ++i) p[i * stride] = a.v[i];
+}
+
 QQ_HD ge ge_load(const int32_t* x, const int32_t* y, const int32_t* z, const int32_t* t,
                  long lane) {
   return ge{fe_load(x, lane), fe_load(y, lane), fe_load(z, lane), fe_load(t, lane)};

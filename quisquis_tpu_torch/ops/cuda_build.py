@@ -38,7 +38,7 @@ KERNELS = {
     "base_mul": ("base_mul.cu", "qq_base_mul", [_VP] * 6 + [_CI, _VP]),
     "msm_table": ("msm_table.cu", "qq_msm_table", [_VP] * 8 + [_CI, _VP]),
     "msm_acc": ("msm_acc.cu", "qq_msm_acc", [_VP] * 9 + [_CI, _CI, _CI, _VP]),
-    "msm_tail": ("msm_tail.cu", "qq_msm_tail", [_VP] * 8 + [_CI, _CI, _VP]),
+    "msm_tail": ("msm_tail.cu", "qq_msm_tail", [_VP] * 10 + [_CI, _CI, _VP]),
     "keccak_f1600": ("keccak_f1600.cu", "qq_keccak_f1600", [_VP, _VP, _CI, _VP]),
 }
 KERNEL_SOURCES = tuple(src for src, _, _ in KERNELS.values())

@@ -9,7 +9,7 @@ package's ``ops/pallas_point.py``.
   :func:`msm` pad their input and run the three.
 
 For tensors on the CPU each calls its plain version in
-:mod:`quisquis_tpu_torch.ops.point` or :mod:`quisquis_tpu_torch.ops.msm`;
+:mod:`quisquis_tpu_torch.ops.point` or :mod:`quisquis_tpu_torch.ops.msm_plain`;
 for CUDA tensors it launches the kernel or raises. Each launch adds one to
 :data:`LAUNCHES`. :mod:`quisquis_tpu_torch.ops.cuda_build` builds and loads
 the kernels.
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import field as fe
-from . import msm as qmsm
+from . import msm_plain as qmsm
 from . import point as pt
 from .cuda_build import LAUNCHES, check_tensor, launch  # noqa: F401  (LAUNCHES: for callers)
 
@@ -107,15 +107,20 @@ def msm_window_sums(digits: torch.Tensor, table: pt.ExtPoint, rows: int) -> pt.E
 
 
 def msm_tail(sums: pt.ExtPoint) -> pt.ExtPoint:
-    """Horner fold over the 64 windows and sum over the lanes: coords
-    [rows, 64, 10, MSM_LANES] -> [rows, 10]."""
+    """Sum over the lanes per window, then Horner's rule over the 64
+    windows: coords [rows, 64, 10, MSM_LANES] -> [rows, 10]."""
     if _device_kind(sums.x, "msm_tail") == "cpu":
         return qmsm.msm_tail(sums)
     dev, rows = sums.device, sums.x.shape[0]
     _check_point(sums, "sums", (rows, pt.NWINDOWS, fe.NLIMBS, qmsm.MSM_LANES), dev)
     out = _empty_point((rows, fe.NLIMBS), dev)
     if rows:
-        launch("msm_tail", dev, *_ptrs(sums), *_ptrs(out), rows, qmsm.MSM_LANES)
+        # the kernel's scratch: cached window totals, and a count of the
+        # windows finished per row
+        totals = torch.empty((rows, pt.NWINDOWS, 4, fe.NLIMBS), dtype=torch.int32, device=dev)
+        done = torch.zeros((rows,), dtype=torch.int32, device=dev)
+        launch("msm_tail", dev, *_ptrs(sums), totals.data_ptr(), done.data_ptr(), *_ptrs(out),
+               rows, qmsm.MSM_LANES)
     return out
 
 

@@ -187,13 +187,30 @@ def pt_sub(p: Point, q: Point) -> Point:
 
 def pt_mul(s: int, p: Point) -> Point:
     """Scalar multiplication (left-to-right binary)."""
-    s %= L
+    return pt_mul_int(s % L, p)
+
+
+def pt_mul_int(s: int, p: Point) -> Point:
+    """s*P for a nonnegative integer s, not reduced mod l: the same point
+    as :func:`pt_mul` in the prime-order subgroup, and the right one for
+    points with a torsion component."""
     acc = IDENTITY
     for bit in bin(s)[2:] if s else "":
         acc = pt_double(acc)
         if bit == "1":
             acc = pt_add(acc, p)
     return acc
+
+
+def eight_torsion() -> Point:
+    """A point of order 8: l times the curve point with y = 3, which lies
+    outside the prime-order subgroup."""
+    y = 3
+    u = (y * y - 1) * pow(D * y * y + 1, P - 2, P) % P
+    x = pow(u, (P + 3) // 8, P)
+    if x * x % P != u:
+        x = x * SQRT_M1 % P
+    return pt_mul_int(L, (x, y, 1, x * y % P))
 
 
 def pt_base_mul(s: int) -> Point:
@@ -251,6 +268,14 @@ def pt_msm(scalars, points) -> Point:
         if acc is not None:
             result = pt_add(result, acc)
     return result
+
+
+def pt_same(p: Point, q: Point) -> bool:
+    """The same curve point (projective equality), not only the same
+    ristretto element."""
+    X1, Y1, Z1, _ = p
+    X2, Y2, Z2, _ = q
+    return (X1 * Z2 - X2 * Z1) % P == 0 and (Y1 * Z2 - Y2 * Z1) % P == 0
 
 
 def pt_eq(p: Point, q: Point) -> bool:

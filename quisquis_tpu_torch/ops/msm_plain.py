@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the three MSM kernels.
+
+    sum_i s_i P_i = sum_w 16^w T_w,   T_w = sum_i digit[i, w] * P_i.
+
+1. :func:`msm_table`: per point its multiples 0..15 (``csrc/msm_table.cu``);
+2. :func:`msm_window_sums`: per row, window and lane the sum of the selected
+   multiples of the lane's points (``csrc/msm_acc.cu``);
+3. :func:`msm_tail`: per row and window the sum over the lanes, then one
+   Horner chain over the 64 window totals (``csrc/msm_tail.cu``).
+
+Each keeps its kernel's schedule, operand order, ``need_t`` choices and
+memory layout, so both agree limb for limb. This module is a leaf: the
+wrappers in :mod:`quisquis_tpu_torch.ops.cuda_point` fall back to it for
+CPU tensors, and :mod:`quisquis_tpu_torch.ops.msm` composes the stages.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import field as fe
+from . import point as pt
+
+#: lanes of a row's accumulators; the constant MSM_LANES of csrc/msm_layout.cuh
+MSM_LANES = 128
+
+
+def select(table: pt.ExtPoint, digit: torch.Tensor) -> pt.ExtPoint:
+    """table coords [..., 16, NL] (broadcast against digit's shape), digit
+    int [...] -> entry digit of each table, coords [..., NL]."""
+    shape = tuple(digit.shape)
+    idx = digit.long()[..., None, None].expand(*shape, 1, fe.NLIMBS)
+    return pt.ExtPoint(*(torch.gather(c.expand(*shape, 16, fe.NLIMBS), -2, idx)[..., 0, :]
+                         for c in table))
+
+
+def msm_table(p: pt.ExtPoint) -> pt.ExtPoint:
+    """coords [n, NL] -> [16, NL, n]: entry k is k * P."""
+    return pt.ExtPoint(*(c.permute(1, 2, 0).contiguous() for c in pt.window_table(p)))
+
+
+def msm_window_sums(digits: torch.Tensor, table: pt.ExtPoint, rows: int) -> pt.ExtPoint:
+    """digits int32 [64, n], table coords [16, NL, n], n = rows * tiles *
+    MSM_LANES -> coords [rows, 64, NL, MSM_LANES]. Lane j of a row starts
+    from the identity and adds its points in order, one per tile."""
+    n = digits.shape[1]
+    tiles = n // (rows * MSM_LANES)
+    if rows < 1 or rows * tiles * MSM_LANES != n:
+        raise ValueError(f"{n} points are not {rows} rows of whole {MSM_LANES}-lane tiles")
+    d = digits.reshape(pt.NWINDOWS, rows, tiles, MSM_LANES)
+    tab = [c.reshape(16, fe.NLIMBS, rows, tiles, MSM_LANES) for c in table]
+    acc = pt.identity((rows, pt.NWINDOWS, MSM_LANES), digits.device)
+    for t in range(tiles):
+        # [rows, 1, lanes, 16, NL], shared by the 64 windows
+        tile = pt.ExtPoint(*(c[:, :, :, t].permute(2, 3, 0, 1)[:, None] for c in tab))
+        acc = pt.add(acc, select(tile, d[:, :, t].permute(1, 0, 2)))
+    return pt.ExtPoint(*(c.permute(0, 1, 3, 2).contiguous() for c in acc))
+
+
+def msm_tail(sums: pt.ExtPoint) -> pt.ExtPoint:
+    """coords [rows, 64, NL, MSM_LANES] -> [rows, NL]. Per row and window
+    the lanes are added in a tree (lane j takes lane j + step for step =
+    MSM_LANES/2 .. 1), the totals put in cached form, then
+    :func:`~quisquis_tpu_torch.ops.point.horner16` runs over windows 63 .. 0."""
+    acc = pt.ExtPoint(*(c.permute(0, 1, 3, 2) for c in sums))  # [rows, 64, lanes, NL]
+    step = MSM_LANES // 2
+    while step:
+        acc = pt.add(pt.ExtPoint(*(c[:, :, :step] for c in acc)),
+                     pt.ExtPoint(*(c[:, :, step:2 * step] for c in acc)))
+        step //= 2
+    totals = pt.to_cached(pt.ExtPoint(*(c[:, :, 0] for c in acc)))  # [rows, 64, NL]
+    out = pt.horner16(sums.x.shape[:1], sums.x.device, pt.NWINDOWS - 1,
+                      lambda w: pt.CachedPoint(*(c[:, w] for c in totals)))
+    return pt.ExtPoint(*(c.contiguous() for c in out))

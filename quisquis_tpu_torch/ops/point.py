@@ -5,7 +5,8 @@ Extended twisted-Edwards coordinates (X, Y, Z, T) over the port's field
 Complete (unified) a=-1 formulas, no branches.
 
 This module is the plain version of the CUDA point library
-(``csrc/point25519.cuh``) and of the two scalar-multiplication kernels
+(``csrc/point25519.cuh``, and ``csrc/quad25519.cuh``'s four-thread
+operations on cached addends) and of the two scalar-multiplication kernels
 (``csrc/scalar_mul.cu``, ``csrc/base_mul.cu``): the same formulas, the same
 ``need_t`` elision, the same table schedules, so the kernels and these
 functions agree limb for limb. :mod:`quisquis_tpu_torch.ops.cuda_point`
@@ -171,34 +172,109 @@ def _stack(points, dim: int) -> ExtPoint:
     return ExtPoint(*(torch.stack(cs, dim=dim) for cs in zip(*points)))
 
 
-def _lookup(table: ExtPoint, digit: torch.Tensor) -> ExtPoint:
-    """table coords [B, 16, NL]; digit int [B] -> entry digit of each row."""
-    idx = digit.long()[:, None, None].expand(-1, 1, fe.NLIMBS)
-    return ExtPoint(*(torch.gather(c, 1, idx)[:, 0] for c in table))
-
-
 def window_table(p: ExtPoint) -> ExtPoint:
     """[B, 16, NL] coords of 0..15 * p: doublings for even entries, one
-    addition of p for odd ones (the kernel's schedule)."""
+    addition of p for odd ones (msm_table's schedule)."""
     table = [identity(p.shape, p.device), p]
     for k in range(2, 16):
         table.append(double(table[k // 2]) if k % 2 == 0 else add(table[k - 1], p))
     return _stack(table, dim=1)
 
 
-def scalar_mul(nibbles: torch.Tensor, p: ExtPoint) -> ExtPoint:
-    """Variable-base s*P: nibbles [B, 64] little-endian, P coords [B, NL].
+class CachedPoint(NamedTuple):
+    """An addend kept as (Y-X, Y+X, Z, 2d T): the cached form of
+    ``csrc/quad25519.cuh``, whose role r holds field r."""
 
-    Starts from digit 63 and runs 63 x (3 doublings without T, 1 with T,
-    1 table addition).
-    """
-    table = window_table(p)
-    acc = _lookup(table, nibbles[:, NWINDOWS - 1])
-    for w in range(NWINDOWS - 2, -1, -1):
+    ymx: torch.Tensor
+    ypx: torch.Tensor
+    z: torch.Tensor
+    t2d: torch.Tensor
+
+
+def to_cached(p: ExtPoint) -> CachedPoint:
+    return CachedPoint(fe.sub(p.y, p.x), fe.add(p.y, p.x), p.z,
+                       fe.mul(p.t, fe.to_tensor(D2_LIMBS, p.device)))
+
+
+def add_cached(p: ExtPoint, c: CachedPoint) -> ExtPoint:
+    """p + c: :func:`add` with 2d T2 computed beforehand; the addition of
+    the kernels' quads (``quad_add``)."""
+    m, a, s = fe.mul, fe.add, fe.sub
+    A = m(s(p.y, p.x), c.ymx)
+    B = m(a(p.y, p.x), c.ypx)
+    Dv = fe.mul_small(m(p.z, c.z), 2)
+    C = m(p.t, c.t2d)
+    E = s(B, A)
+    F = s(Dv, C)
+    G = a(Dv, C)
+    H = a(B, A)
+    return ExtPoint(m(E, F), m(G, H), m(F, G), m(E, H))
+
+
+def horner16(shape, device, top: int, addend) -> ExtPoint:
+    """From the identity, for w = top .. 0: four doublings (3 without T, 1
+    with T; none before the first addition), then the cached addend(w)
+    added (``quad_horner16``)."""
+    acc = add_cached(identity(shape, device), addend(top))
+    for w in range(top - 1, -1, -1):
         for k in range(WINDOW_BITS):
             acc = double(acc, need_t=(k == WINDOW_BITS - 1))
-        acc = add(acc, _lookup(table, nibbles[:, w]))
+        acc = add_cached(acc, addend(w))
     return acc
+
+
+SIGNED_DIGITS = NWINDOWS + 1
+
+
+def signed_digits(nibbles: torch.Tensor) -> torch.Tensor:
+    """nibbles int [..., 64] (0..15, little-endian) -> int32 [..., 65] in
+    -8..8 with the same value sum 16^w e_w (``signed_radix16``: dalek's
+    ``Scalar::as_radix_16`` with a 65th digit for a top nibble >= 8)."""
+    carry = torch.zeros(nibbles.shape[:-1], dtype=torch.int32, device=nibbles.device)
+    out = []
+    for w in range(NWINDOWS):
+        v = nibbles[..., w].int() + carry
+        carry = (v + 8) >> 4
+        out.append(v - (carry << 4))
+    out.append(carry)
+    return torch.stack(out, dim=-1)
+
+
+def cached_table(p: ExtPoint) -> CachedPoint:
+    """Fields [B, 9, NL] of the cached multiples 0..8 of p, entry 0 the
+    identity's (1, 1, 1, 0); 2 = 2(1), 3 = 2+1, 4 = 2(2), 5 = 4+1,
+    6 = 2(3), 7 = 6+1, 8 = 2(4) (``quad_table8``)."""
+    c1 = to_cached(p)
+    p2 = double(p)
+    p3 = add_cached(p2, c1)
+    p4 = double(p2)
+    p6 = double(p3)
+    multiples = [p2, p3, p4, add_cached(p4, c1), p6, add_cached(p6, c1), double(p4)]
+    one = fe.ones(p.shape, p.device)
+    ident = CachedPoint(one, one, one, fe.zeros(p.shape, p.device))
+    entries = [ident, c1] + [to_cached(m) for m in multiples]
+    return CachedPoint(*(torch.stack(cs, dim=1) for cs in zip(*entries)))
+
+
+def select_cached(table: CachedPoint, digit: torch.Tensor) -> CachedPoint:
+    """table fields [B, 9, NL], digit int [B] in -8..8 -> entry |digit|,
+    negated where digit < 0 (Y-X and Y+X swapped, 2d T negated)."""
+    idx = digit.abs().long()[:, None, None].expand(-1, 1, fe.NLIMBS)
+    e = CachedPoint(*(torch.gather(c, 1, idx)[:, 0] for c in table))
+    neg = digit < 0
+    return CachedPoint(fe.select(neg, e.ypx, e.ymx), fe.select(neg, e.ymx, e.ypx), e.z,
+                       fe.select(neg, fe.neg(e.t2d), e.t2d))
+
+
+def scalar_mul(nibbles: torch.Tensor, p: ExtPoint) -> ExtPoint:
+    """Variable-base s*P: nibbles [B, 64] little-endian, any values 0..15,
+    P coords [B, NL]. The kernel's schedule (``csrc/scalar_mul.cu``): 65
+    signed digits, the cached multiples 1..8, Horner's rule from the
+    identity."""
+    table = cached_table(p)
+    digits = signed_digits(nibbles)
+    return horner16(p.shape, p.device, SIGNED_DIGITS - 1,
+                    lambda w: select_cached(table, digits[:, w]))
 
 
 def niels_base_table_np() -> np.ndarray:

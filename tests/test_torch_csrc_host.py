@@ -119,20 +119,37 @@ void h_msm_acc(const int32_t* digits, const int32_t* tx, const int32_t* ty, cons
       }
 }
 
-// what msm_tail_kernel does for every row: the lanes' Horner folds, then the
-// tree in the kernel's order (lane j takes lane j + step)
+// what msm_tail_kernel does for every row: the 64 lane trees in the
+// kernel's order, then the quad's Horner chain with its roles run in turn
 void h_msm_tail(const int32_t* wx, const int32_t* wy, const int32_t* wz, const int32_t* wt,
                 int32_t* out, int rows) {
-  std::vector<ge> acc(MSM_LANES);
   for (int r = 0; r < rows; ++r) {
-    for (int j = 0; j < MSM_LANES; ++j) {
-      const long row = (long)r * MSM_WINDOWS * NL * MSM_LANES + j;
-      acc[j] = msm_tail_lane(wx + row, wy + row, wz + row, wt + row);
-    }
-    for (int step = MSM_LANES / 2; step >= 1; step >>= 1)
-      for (int j = 0; j < step; ++j) acc[j] = ge_add<true>(acc[j], acc[j + step]);
-    st(out + r * 4 * NL, acc[0]);
+    const long row = (long)r * MSM_WINDOWS * NL * MSM_LANES;
+    st(out + r * 4 * NL, msm_tail_row(wx + row, wy + row, wz + row, wt + row));
   }
+}
+
+// the quads' point operations, roles run in turn: op 0 double (T), 1 double
+// (no T), 2 p + cached(q), 3 cached(p)
+void h_quad(int op, const int32_t* p, const int32_t* q, int32_t* out, int n) {
+  const QuadHost h;
+  for (int k = 0; k < n; ++k) {
+    const ge a = ld(p + k * 4 * NL), b = ld(q + k * 4 * NL);
+    QuadHost::V v{{a.x, a.y, a.z, a.t}};
+    const QuadHost::V w{{b.x, b.y, b.z, b.t}};
+    switch (op) {
+      case 0: quad_double<true>(h, v); break;
+      case 1: quad_double<false>(h, v); break;
+      case 2: quad_add(h, v, quad_to_cached(h, w)); break;
+      default: v = quad_to_cached(h, v); break;
+    }
+    st(out + k * 4 * NL, ge{v.c[0], v.c[1], v.c[2], v.c[3]});
+  }
+}
+
+// nibbles int32 [n, 64] -> signed digits int8 [n, 65]
+void h_signed_radix16(const int32_t* nib, int8_t* out, int n) {
+  for (int k = 0; k < n; ++k) signed_radix16(nib + k * 64, out + k * SIGNED_DIGITS, 1);
 }
 
 int h_msm_lanes() { return MSM_LANES; }
@@ -178,12 +195,31 @@ def lib():
     lib.h_msm_table.argtypes = [vp] * 5 + [ci]
     lib.h_msm_acc.argtypes = [vp] * 9 + [ci, ci]
     lib.h_msm_tail.argtypes = [vp] * 5 + [ci]
+    lib.h_quad.argtypes = [ci, vp, vp, vp, ci]
+    lib.h_signed_radix16.argtypes = [vp, vp, ci]
     lib.h_keccak.argtypes = [vp, vp, ci]
     for fn in (lib.h_fe, lib.h_ge, lib.h_base_mul, lib.h_msm_table, lib.h_msm_acc,
-               lib.h_msm_tail, lib.h_keccak):
+               lib.h_msm_tail, lib.h_quad, lib.h_signed_radix16, lib.h_keccak):
         fn.restype = None
     lib.h_msm_lanes.restype = ci
     return lib
+
+
+def test_each_source_compiles_alone():
+    """Every .cu file compiles on its own as C++ (its includes complete
+    without the harness's other files); the CUDA-only parts are skipped
+    there, the GPU build checks them."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("g++ is not installed")
+    sources = sorted(f for f in os.listdir(CSRC) if f.endswith(".cu"))
+    assert set(sources) >= {"scalar_mul.cu", "msm_tail.cu"}
+    procs = [(f, subprocess.Popen([cxx, "-std=c++17", "-fsyntax-only", "-x", "c++",
+                                   os.path.join(CSRC, f)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for f in sources]
+    results = {f: (p.communicate(timeout=300)[0], p.returncode) for f, p in procs}
+    assert {f: out for f, (out, rc) in results.items() if out or rc} == {}
 
 
 def _ptr(a: np.ndarray):
@@ -263,21 +299,57 @@ def test_point_double_add(lib):
     assert np.array_equal(out[:, 3], pa[:, 3])
     full = pt.double(_ext(pa))
     assert np.array_equal(out[:, :3], np.stack([c.numpy() for c in full[:3]], axis=1))
+    # the quads' operations, roles run in turn: limb for limb the one-thread
+    # doubling, add_cached and to_cached, and exact
+    def quad(op):
+        out = np.zeros_like(pa)
+        lib.h_quad(op, _ptr(pa), _ptr(qa), _ptr(out), 8)
+        return out
+
+    tp, tq = _ext(pa), _ext(qa)
+    for op, plain in ((0, pt.double(tp)), (1, pt.double(tp, need_t=False)),
+                      (2, pt.add_cached(tp, pt.to_cached(tq))), (3, pt.to_cached(tp))):
+        assert np.array_equal(quad(op), np.stack([c.numpy() for c in plain], axis=1))
+    assert all(ex.pt_same(g, ex.pt_add(p, q))
+               for g, p, q in zip(pt.to_exact_batch(_ext(quad(2))), ps, qs))
+
+
+def _nibbles_of(values) -> np.ndarray:
+    """256-bit integers, not reduced mod l -> int32 [n, 64] nibbles."""
+    return np.array([[(v >> (4 * w)) & 15 for w in range(64)] for v in values],
+                    dtype=np.int32)
+
+
+def _edge_cases():
+    """(integers, points) at the signed recoding's edges: 0, 1, l-1, 2^256-1
+    (every nibble 15), top nibbles 8 and 15 (a carry into digit 64), on
+    random points, the identity, a point of order 8 and one with an 8-torsion
+    component."""
+    r = random.Random(5)
+    t8 = ex.eight_torsion()
+    p = [ex.pt_base_mul(r.randrange(1, ex.L)) for _ in range(10)]
+    top8, top15 = 8 * 16**63 + r.randrange(16**63), 15 * 16**63 + r.randrange(16**63)
+    values = [0, 1, ex.L - 1, 2**256 - 1, top8, top15, 2**256 - 1, top15, ex.L - 1,
+              r.randrange(2**256)]
+    points = p[:6] + [ex.IDENTITY, t8, ex.pt_add(p[8], t8), t8]
+    return values, points
 
 
 def test_scalar_mul_lane(lib):
-    scalars = [0, 1, 15, ex.L - 1, 2**252, int("f" * 63, 16) % ex.L, 7, 2**64]
-    r = random.Random(5)
-    ps = [ex.pt_base_mul(r.randrange(1, ex.L)) for _ in scalars]
-    pa = _points_np(ps)
-    nib = np.ascontiguousarray(pt.scalars_to_nibbles(scalars))
+    values, points = _edge_cases()
+    pa = _points_np(points)
+    nib = _nibbles_of(values)
     out = np.zeros_like(pa)
-    lib.h_ge(3, _ptr(pa), _ptr(pa), _ptr(nib), _ptr(out), len(scalars))
-    enc = pt.compress_to_bytes(_ext(out))
-    for row, s, p in zip(enc, scalars, ps):
-        assert bytes(row) == ex.ristretto_encode(ex.pt_mul(s, p))
+    lib.h_ge(3, _ptr(pa), _ptr(pa), _ptr(nib), _ptr(out), len(values))
+    got = pt.to_exact_batch(_ext(out))
+    assert all(ex.pt_same(g, ex.pt_mul_int(v, p)) for g, v, p in zip(got, values, points))
     plain = pt.scalar_mul(torch.as_tensor(nib), _ext(pa))
     assert np.array_equal(out, np.stack([c.numpy() for c in plain], axis=1))
+    digits = np.zeros((len(values), pt.SIGNED_DIGITS), dtype=np.int8)
+    lib.h_signed_radix16(_ptr(nib), _ptr(digits), len(values))
+    assert np.array_equal(digits, pt.signed_digits(torch.as_tensor(nib)).numpy())
+    assert digits.min() >= -8 and digits.max() <= 8 and set(digits[:, 64]) == {0, 1}
+    assert [sum(int(d) << (4 * w) for w, d in enumerate(row)) for row in digits] == values
 
 
 def test_base_mul_lane(lib):
@@ -300,14 +372,17 @@ def _coords_np(p: pt.ExtPoint):
 def test_msm_stages_equal_plain(lib):
     """The per-lane bodies of msm_table.cu, msm_acc.cu and msm_tail.cu, driven
     over (row, window, lane) as the kernels' grids are, against the plain
-    versions limb for limb: 2 rows of 2 tiles, the last tile identity padding."""
+    versions limb for limb: 2 rows of 2 tiles, the last tile identity padding.
+    Row 0 starts with the edge cases of scalar_mul (integers up to 2^256-1,
+    the identity, a point of order 8)."""
     assert lib.h_msm_lanes() == qmsm.MSM_LANES
     rows, k = 2, qmsm.MSM_LANES + 3
     r = random.Random(77)
     scalars = [r.randrange(ex.L) for _ in range(rows * k)]
-    scalars[:4] = [0, 1, ex.L - 1, int("f" * 63, 16) % ex.L]
     points = [ex.pt_base_mul(r.randrange(1, ex.L)) for _ in range(rows * k)]
-    nib = torch.as_tensor(pt.scalars_to_nibbles(scalars)).reshape(rows, k, 64)
+    edge_values, edge_points = _edge_cases()
+    scalars[:len(edge_values)], points[:len(edge_points)] = edge_values, edge_points
+    nib = torch.as_tensor(_nibbles_of(scalars)).reshape(rows, k, 64)
     flat = pt.from_exact_batch(points, "cpu")
     digits, padded = kp.pad_rows(nib, pt.ExtPoint(*(c.reshape(rows, k, fe.NLIMBS) for c in flat)))
     n = padded.x.shape[0]
@@ -329,10 +404,13 @@ def test_msm_stages_equal_plain(lib):
     out = np.zeros((rows, 4, fe.NLIMBS), dtype=np.int32)
     lib.h_msm_tail(*map(_ptr, sums), _ptr(out), rows)
     assert np.array_equal(out, np.stack(_coords_np(want), axis=1))
-    enc = pt.compress_to_bytes(_ext(out))
-    for i in range(rows):
-        exact = ex.pt_msm(scalars[i * k:(i + 1) * k], points[i * k:(i + 1) * k])
-        assert bytes(enc[i]) == ex.ristretto_encode(exact)
+    e = len(edge_values)
+    edge = ex.IDENTITY
+    for v, p in zip(edge_values, edge_points):
+        edge = ex.pt_add(edge, ex.pt_mul_int(v, p))
+    want_rows = [ex.pt_add(edge, ex.pt_msm(scalars[e:k], points[e:k])),
+                 ex.pt_msm(scalars[k:], points[k:])]
+    assert all(ex.pt_same(g, w) for g, w in zip(pt.to_exact_batch(_ext(out)), want_rows))
 
 
 def test_keccak_permutation_equals_plain_and_host(lib):

@@ -38,11 +38,24 @@ def test_kernels_equal_plain_on_a_ragged_batch(dev):
     n = 300  # not a multiple of the block size
     nib = torch.as_tensor(pt.scalars_to_nibbles(_scalars(n)), device=dev)
     p = pt.base_mul(torch.flip(nib, dims=(0,)).contiguous())
+    # scalar_mul's edge cases: integers up to 2^256 - 1 (a carry into the
+    # 65th signed digit) on the identity and on points with 8-torsion
+    raw = [2**256 - 1, 8 * 16**63 + 5, 15 * 16**63 + 7, 2**256 - 1, ex.L - 1]
+    nib_sm = nib.clone()
+    nib_sm[:5] = torch.as_tensor([[(v >> (4 * w)) & 15 for w in range(64)] for v in raw],
+                                 dtype=torch.int32, device=dev)
+    t8 = ex.eight_torsion()
+    host = pt.to_exact_batch(pt.ExtPoint(*(c[:5] for c in p)))
+    host[2:5] = [ex.IDENTITY, t8, ex.pt_add(host[4], t8)]
+    for c, e in zip(p, pt.from_exact_batch(host, dev)):
+        c[:5] = e
     before = dict(kp.LAUNCHES)
-    k_s, k_b = kp.scalar_mul(nib, p), kp.base_mul(nib)
+    k_s, k_b = kp.scalar_mul(nib_sm, p), kp.base_mul(nib)
     assert kp.LAUNCHES == {k: v + (k in ("scalar_mul", "base_mul")) for k, v in before.items()}
     # the same arithmetic in the same order: limb-identical to the plain versions
-    assert all(torch.equal(a, b) for a, b in zip(k_s, pt.scalar_mul(nib, p)))
+    assert all(torch.equal(a, b) for a, b in zip(k_s, pt.scalar_mul(nib_sm, p)))
+    got = pt.to_exact_batch(pt.ExtPoint(*(c[:5] for c in k_s)))
+    assert all(ex.pt_same(g, ex.pt_mul_int(v, q)) for g, v, q in zip(got, raw, host))
     assert all(torch.equal(a, b) for a, b in zip(k_b, pt.base_mul(nib)))
 
 
@@ -63,7 +76,7 @@ def test_wrappers_check_their_inputs(dev):
 
 
 def test_msm_stages_equal_plain_in_rows_mode(dev):
-    rows, k = 3, 150  # two tiles a row, the second mostly identity padding
+    rows, k = 8, 150  # two tiles a row, the second mostly identity padding
     r = random.Random(5)
     nib = torch.as_tensor(pt.scalars_to_nibbles(_scalars(rows * k)), device=dev)
     p = kp.base_mul(torch.as_tensor(
@@ -84,6 +97,12 @@ def test_msm_stages_equal_plain_in_rows_mode(dev):
     assert all(torch.equal(a, b) for a, b in zip(qmsm.msm_rows(nib_rk, p_rk), out))
     one = qmsm.msm(nib[:k], pt.ExtPoint(*(c[:k] for c in p)))
     assert all(torch.equal(a, b[0]) for a, b in zip(one, out))
+    scalars = [int(sum(int(d) << (4 * w) for w, d in enumerate(row))) for row in nib.tolist()]
+    host = pt.to_exact_batch(p)
+    got = pt.to_exact_batch(out)
+    for i in range(rows):
+        want = ex.pt_msm(scalars[i * k:(i + 1) * k], host[i * k:(i + 1) * k])
+        assert ex.pt_same(got[i], want)
     with pytest.raises(ValueError):
         kp.msm_window_sums(digits[:, :-1].contiguous(), table, rows)
     with pytest.raises(ValueError):

@@ -85,6 +85,21 @@ def test_scalar_mul_edge_scalars():
     out = pt.scalar_mul(nib, pt.from_exact_batch(pts, device="cpu"))
     assert encodings(out) == [ex.ristretto_encode(ex.pt_mul(s, p)) for s, p in zip(scalars, pts)]
     assert encodings(pt.base_mul(nib)) == [ex.ristretto_encode(ex.pt_base_mul(s)) for s in scalars]
+    # any 256-bit integer, as the JAX function takes: a top nibble of 8 or
+    # 15 carries into the 65th signed digit; the identity and points with
+    # 8-torsion, where s is not reduced mod l
+    t8 = ex.eight_torsion()
+    values = [2**256 - 1, 8 * 16**63 + 9, 15 * 16**63 + 3, 2**256 - 1, 15 * 16**63 + 1,
+              ex.L - 1, 2**256 - 1, ex.L]
+    points = pts[:3] + [ex.IDENTITY, t8, ex.pt_add(pts[5], t8), t8, pts[7]]
+    nib_np = np.array([[(v >> (4 * w)) & 15 for w in range(64)] for v in values],
+                      dtype=np.int32)
+    assert pt.signed_digits(torch.as_tensor(nib_np))[:, 64].tolist() == [1, 1, 1, 1, 1, 0, 1, 0]
+    out = pt.scalar_mul(torch.as_tensor(nib_np), pt.from_exact_batch(points, device="cpu"))
+    want = [ex.pt_mul_int(v, p) for v, p in zip(values, points)]
+    assert all(ex.pt_same(g, w) for g, w in zip(pt.to_exact_batch(out), want))
+    jout = jpt.scalar_mul(jnp.asarray(nib_np), jpt.from_exact_batch(points))
+    assert all(ex.pt_same(g, w) for g, w in zip(jpt.to_exact_batch(jout), want))
 
 
 def test_add_double_neg_sub():
