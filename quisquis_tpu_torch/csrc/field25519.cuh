@@ -32,6 +32,15 @@
 #define QQ_NOUNROLL
 #endif
 
+// Before a host-device template that takes a functor: a device-only lambda
+// passed to it is fine in device code, and this keeps nvcc from checking
+// the host side.
+#ifdef __CUDACC__
+#define QQ_FUNCTOR_TEMPLATE _Pragma("nv_exec_check_disable")
+#else
+#define QQ_FUNCTOR_TEMPLATE
+#endif
+
 namespace qq {
 
 constexpr int NL = 10;

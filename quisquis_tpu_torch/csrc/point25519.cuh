@@ -42,13 +42,17 @@ QQ_HD ge ge_double(const ge& p) {
   return r;
 }
 
-// complete unified addition (2d*T1*T2)
-template <bool NEED_T>
-QQ_HD ge ge_add(const ge& p, const ge& q) {
-  const fe A = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
-  const fe B = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
-  const fe C = fe_mul(fe_mul(p.t, fe_d2()), q.t);
-  const fe D = fe_mul_small<2>(fe_mul(p.z, q.z));
+// complete unified addition (2d*T1*T2), with q's coordinates read one at a
+// time, just before each is used (fewer registers live where q comes from
+// memory): q(c) returns coordinate c of q (x, y, z, t)
+QQ_FUNCTOR_TEMPLATE
+template <bool NEED_T, class Q>
+QQ_HD ge ge_add_lazy(const ge& p, const Q& q) {
+  const fe qy = q(1), qx = q(0);
+  const fe A = fe_mul(fe_sub(p.y, p.x), fe_sub(qy, qx));
+  const fe B = fe_mul(fe_add(p.y, p.x), fe_add(qy, qx));
+  const fe C = fe_mul(fe_mul(p.t, fe_d2()), q(3));
+  const fe D = fe_mul_small<2>(fe_mul(p.z, q(2)));
   const fe E = fe_sub(B, A);
   const fe F = fe_sub(D, C);
   const fe G = fe_add(D, C);
@@ -63,6 +67,12 @@ QQ_HD ge ge_add(const ge& p, const ge& q) {
     r.t = p.t;
   }
   return r;
+}
+
+template <bool NEED_T>
+QQ_HD ge ge_add(const ge& p, const ge& q) {
+  return ge_add_lazy<NEED_T>(
+      p, [&](int c) { return c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.t; });
 }
 
 // mixed addition with an affine niels point: 7 multiplies with T

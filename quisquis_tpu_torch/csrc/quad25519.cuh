@@ -33,14 +33,6 @@
 
 #include "point25519.cuh"
 
-// The templates below take functors; a device-only lambda passed to them is
-// fine in device code, and this keeps nvcc from checking the host side.
-#ifdef __CUDACC__
-#define QQ_FUNCTOR_TEMPLATE _Pragma("nv_exec_check_disable")
-#else
-#define QQ_FUNCTOR_TEMPLATE
-#endif
-
 namespace qq {
 
 // ---------------------------------------------------------------------------

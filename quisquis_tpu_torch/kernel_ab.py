@@ -9,19 +9,24 @@ example the parent commit unpacked with ``git archive``). Its
 ``scalar_mul.cu``, ``msm_tail.cu``, ``base_mul.cu``, ``msm_table.cu`` and
 ``msm_acc.cu`` are built with the same nvcc flags into
 ``build/kernel_ab/``; their C entry points must have the signatures of
-slice 2 (``qq_msm_tail``: 8 pointers, rows and lanes; the others as in
-``ops/cuda_build.py``). The script prints:
+``ops/cuda_build.py``. The old ``base_mul.cu`` is given the table of its
+own layout, 16 unsigned entries a window ([64, 16, 3, 10], built here by
+:func:`unsigned_niels_table`). The script prints:
 
 1. the card's name and power limit (nvidia-smi) and ptxas's registers,
    stack and spills of both builds;
 2. that both builds give the same points at the main paths' shapes:
-   scalar_mul at N = 16,384 and msm_tail at one row of 128 lanes (window
-   sums of 4,736 points) and at R = 8 at canonical encodings (their
-   schedules changed); base_mul at N = 16,384, msm_table and msm_acc on
-   4,736 points limb for limb (same schedules, shared field library);
-3. each kernel's time by CUDA events, in turns: old, new, new, old;
-4. the SASS opcodes of the two new kernels (cuobjdump), with how many
-   IMAD.WIDE instructions each holds, and the measured rate of a kernel that
+   base_mul at N = 16,384 per lane and msm_acc per (row, window, lane) at
+   one row of 4,736 points and at R = 8 rows of 256, as projective points
+   (X1 Z2 = X2 Z1, Y1 Z2 = Y2 Z1: their schedules differ in
+   :data:`CHANGED`); scalar_mul at N = 16,384, msm_table on 4,736 points
+   and msm_tail at one row and at R = 8 limb for limb;
+3. each kernel's time by CUDA events, in turns: old, new, new, old. Both
+   builds are launched through their C entry points on preallocated
+   outputs, so the times hold no host work of the torch wrappers;
+4. the SASS opcodes of the changed kernels (cuobjdump), with how many
+   IMAD.WIDE instructions each holds and where its local-memory loads and
+   stores (spills) sit among its barriers, and the measured rate of a kernel that
    does nothing but independent ``mad.wide.s32`` (32x32->64 multiply-add
    into 64 bits), in products per clock per SM at the card's maximum SM
    clock.
@@ -45,6 +50,7 @@ import torch
 
 from .ops import cuda_build as cb
 from .ops import cuda_point as kp
+from .ops import exact as ex
 from .ops import field as fe
 from .ops import point as pt
 
@@ -54,10 +60,10 @@ TAIL_ROWS, TAIL_K = 8, 256
 SEED = 20261017
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-SAME_SCHEDULE = ("base_mul", "msm_table", "msm_acc")
-_OLD_ENTRIES = {"scalar_mul": cb.KERNELS["scalar_mul"],
-                "msm_tail": ("msm_tail.cu", "qq_msm_tail", [_VP] * 8 + [_CI, _CI, _VP]),
-                **{k: cb.KERNELS[k] for k in SAME_SCHEDULE}}
+#: kernels whose schedules this checkout changed: compared as points
+CHANGED = ("base_mul", "msm_acc")
+_OLD_ENTRIES = {k: cb.KERNELS[k] for k in
+                ("scalar_mul", "msm_tail", "base_mul", "msm_table", "msm_acc")}
 
 IMAD_SRC = r"""
 #include <stdint.h>
@@ -129,8 +135,37 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def encodings(p: pt.ExtPoint) -> bytes:
-    return pt.compress_to_bytes(p).tobytes()
+def unsigned_niels_table(dev: torch.device) -> torch.Tensor:
+    """The fixed-base table of slices 1-3's base_mul.cu: int32 [64, 16, 3,
+    10], entry k of window w is (16^w * k) * B in affine niels form (y+x,
+    y-x, 2d*x*y), entry 0 is (1, 1, 0)."""
+    rows, base = [], ex.BASEPOINT
+    for _ in range(pt.NWINDOWS):
+        entry = ex.IDENTITY
+        for _ in range(16):
+            X, Y, Z, _t = entry
+            zi = ex.fe_invert(Z)
+            x, y = X * zi % ex.P, Y * zi % ex.P
+            rows += [(y + x) % ex.P, (y - x) % ex.P, x * y % ex.P * ex.D2 % ex.P]
+            entry = ex.pt_add(entry, base)
+        for _ in range(pt.WINDOW_BITS):
+            base = ex.pt_double(base)
+    return fe.to_tensor(fe.from_int_batch(rows).reshape(pt.NWINDOWS, 16, 3, fe.NLIMBS), dev)
+
+
+def same_points(a: pt.ExtPoint, b: pt.ExtPoint) -> bool:
+    """Every point of a equals b's as a projective point (limbs last)."""
+    m = fe.mul
+    return bool((fe.eq(m(a.x, b.z), m(b.x, a.z)) & fe.eq(m(a.y, b.z), m(b.y, a.z))).all())
+
+
+def limbs_last(sums: pt.ExtPoint) -> pt.ExtPoint:
+    """Window sums [rows, 64, NL, lanes] -> points [rows, 64, lanes, NL]."""
+    return pt.ExtPoint(*(c.transpose(-1, -2).contiguous() for c in sums))
+
+
+def same_limbs(a: pt.ExtPoint, b: pt.ExtPoint) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def sass_summary(so: Path, kernel: str) -> str:
@@ -143,21 +178,27 @@ def sass_summary(so: Path, kernel: str) -> str:
             keep = kernel in line
         elif keep:
             body.append(line)
-    ops = collections.Counter()
+    ops, marks = collections.Counter(), []
     for line in body:
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m:
-            ops[m.group(2)] += 1
+            op = m.group(2)
+            if op.startswith(("STL", "LDL", "BAR")):  # where spills sit against the barriers
+                marks.append(f"{op}@{sum(ops.values())}")
+            ops[op] += 1
     total = sum(ops.values())
     top = ", ".join(f"{k} {v}" for k, v in ops.most_common(14))
     wide = sum(v for k, v in ops.items() if k.startswith("IMAD.WIDE"))
     return (f"SASS of {kernel}: {total} instructions, {wide} IMAD.WIDE*; "
-            f"most frequent: {top}")
+            f"most frequent: {top}; local loads/stores and barriers at instruction: "
+            f"{' '.join(marks) or 'none'}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", required=True, type=Path)
+    ap.add_argument("--only", nargs="+", choices=tuple(_OLD_ENTRIES), default=tuple(_OLD_ENTRIES),
+                    help="compare and time these kernels only (default: all five)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA GPU is available", file=sys.stderr)
@@ -173,7 +214,8 @@ def main() -> int:
     print("\n".join(ptxas_lines(cb.build_log(), tuple(_OLD_ENTRIES))))
     out_dir = cb.build_root().parent / "kernel_ab"
     old = {}
-    for name, (src, entry, argtypes) in _OLD_ENTRIES.items():
+    for name in args.only:
+        src, entry, argtypes = _OLD_ENTRIES[name]
         lib, log = nvcc_shared([args.old_csrc / src], out_dir, f"old_{name}.so")
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = argtypes, _CI
@@ -181,10 +223,15 @@ def main() -> int:
         print(f"old build ({args.old_csrc / src}):")
         print("\n".join(ptxas_lines(log, (name,))))
 
-    def old_launch(name, *ptrs):
-        rc = old[name](*ptrs, torch.cuda.current_stream().cuda_stream)
+    # both builds run through their C entry points on preallocated outputs,
+    # so no time below holds the torch wrappers' host work (which takes
+    # longer than a 50 us kernel)
+    libs = {"old": old, "new": {k: getattr(new_lib, cb.KERNELS[k][1]) for k in args.only}}
+
+    def call(side, name, *cargs):
+        rc = libs[side][name](*cargs, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"old {name}: CUDA error {rc}")
+            raise RuntimeError(f"{side} {name}: CUDA error {rc}")
 
     rng = np.random.default_rng(SEED)
 
@@ -199,84 +246,80 @@ def main() -> int:
     def empty(shape):
         return pt.ExtPoint(*(torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(4)))
 
-    # scalar_mul at N = 16,384
+    # scalar_mul and base_mul at N = 16,384; each build's base_mul gets the
+    # table of its own layout
     nib = nibbles(N_SCALAR)
     base = kp.base_mul(nibbles(N_SCALAR))
-    out_old = empty((N_SCALAR, fe.NLIMBS))
+    tables = {"old": unsigned_niels_table(dev), "new": pt.niels_base_table(dev)}
 
-    def run_old_sm():
-        old_launch("scalar_mul", nib.data_ptr(), *ptrs(base), *ptrs(out_old), N_SCALAR)
-        return out_old
-
-    def run_new_sm():
-        return kp.scalar_mul(nib, base)
-
-    same_sm = encodings(run_old_sm()) == encodings(run_new_sm())
-
-    # msm_tail: window sums of one row of 4,736 points and of 8 rows of 256
-    def sums_of(rows, k):
+    # the MSM stages: one row of 4,736 points (the range verifier's MSM,
+    # padded) and R = 8 rows of 256
+    def msm_inputs(rows, k):
         n = rows * k
         nib_rk = nibbles(n).reshape(rows, k, 64)
         pts = kp.base_mul(nibbles(n))
         digits, flat = kp.pad_rows(nib_rk, pt.ExtPoint(*(c.reshape(rows, k, fe.NLIMBS)
                                                          for c in pts)))
-        return kp.msm_window_sums(digits, kp.msm_table(flat), rows)
+        return rows, digits, flat, kp.msm_table(flat)
 
-    tails = {"1 row": sums_of(1, TAIL_POINTS), f"R={TAIL_ROWS}": sums_of(TAIL_ROWS, TAIL_K)}
-    tail_old_out = {k: empty((s.x.shape[0], fe.NLIMBS)) for k, s in tails.items()}
+    one = f"N={N_SCALAR}"
+    msm_in = {"1 row": msm_inputs(1, TAIL_POINTS), f"R={TAIL_ROWS}": msm_inputs(TAIL_ROWS, TAIL_K)}
+    sums = {key: kp.msm_window_sums(d, t, rows) for key, (rows, d, _, t) in msm_in.items()}
+    outs = {}
 
-    def run_old_tail(key):
-        s = tails[key]
-        old_launch("msm_tail", *ptrs(s), *ptrs(tail_old_out[key]), s.x.shape[0], 128)
-        return tail_old_out[key]
+    def run(side, name, key):
+        """One launch of a build's kernel; its output (kept per side)."""
+        if name in ("scalar_mul", "base_mul"):
+            o = outs.setdefault((side, name), empty((N_SCALAR, fe.NLIMBS)))
+            first = ((nib.data_ptr(), *ptrs(base)) if name == "scalar_mul" else
+                     (tables[side].data_ptr(), nib.data_ptr()))
+            call(side, name, *first, *ptrs(o), N_SCALAR)
+            return o
+        rows, digits, flat, table = msm_in[key]
+        if name == "msm_table":
+            o = outs.setdefault((side, name), empty((16, fe.NLIMBS, flat.x.shape[0])))
+            call(side, name, *ptrs(flat), *ptrs(o), flat.x.shape[0])
+        elif name == "msm_acc":
+            o = outs.setdefault((side, name, key), empty((rows, 64, fe.NLIMBS, 128)))
+            call(side, name, digits.data_ptr(), *ptrs(table), *ptrs(o), rows,
+                 digits.shape[1] // (rows * 128), 128)
+        else:  # msm_tail, with the scratch its wrapper makes
+            o = outs.setdefault((side, name, key), empty((rows, fe.NLIMBS)))
+            totals = torch.empty((rows, 64, 4, fe.NLIMBS), dtype=torch.int32, device=dev)
+            done = torch.zeros((rows,), dtype=torch.int32, device=dev)
+            call(side, name, *ptrs(sums[key]), totals.data_ptr(), done.data_ptr(), *ptrs(o),
+                 rows, 128)
+        return o
 
-    same_tail = {k: encodings(run_old_tail(k)) == encodings(kp.msm_tail(s))
-                 for k, s in tails.items()}
-
-    # the kernels whose schedules did not change: base_mul at N = 16,384,
-    # msm_table and msm_acc on the verifier's 4,736 points
-    niels = pt.niels_base_table(dev)
-    digits, flat = kp.pad_rows(nibbles(TAIL_POINTS)[None],
-                               pt.ExtPoint(*(c[None] for c in kp.base_mul(nibbles(TAIL_POINTS)))))
-    table = kp.msm_table(flat)
-    outs = {"base_mul": empty((N_SCALAR, fe.NLIMBS)),
-            "msm_table": empty((16, fe.NLIMBS, TAIL_POINTS)),
-            "msm_acc": empty((1, 64, fe.NLIMBS, 128))}
-    old_args = {"base_mul": (niels.data_ptr(), nib.data_ptr(), *ptrs(outs["base_mul"]), N_SCALAR),
-                "msm_table": (*ptrs(flat), *ptrs(outs["msm_table"]), TAIL_POINTS),
-                "msm_acc": (digits.data_ptr(), *ptrs(table), *ptrs(outs["msm_acc"]), 1,
-                            TAIL_POINTS // 128, 128)}
-    new_runs = {"base_mul": lambda: kp.base_mul(nib), "msm_table": lambda: kp.msm_table(flat),
-                "msm_acc": lambda: kp.msm_window_sums(digits, table, 1)}
-
-    def run_old_same(name):
-        old_launch(name, *old_args[name])
-        return outs[name]
-
-    same_limbs = {k: all(torch.equal(a, b) for a, b in zip(run_old_same(k), new_runs[k]()))
-                  for k in SAME_SCHEDULE}
-    print(f"same points at canonical encodings: scalar_mul N={N_SCALAR} {same_sm}; "
-          f"msm_tail {same_tail}; limb for limb: {same_limbs}", flush=True)
-    if not (same_sm and all(same_tail.values()) and all(same_limbs.values())):
+    cases = [("scalar_mul", one, one, 10), ("base_mul", one, one, 20),
+             ("msm_table", "1 row", f"{TAIL_POINTS} points", 20)]
+    for name in ("msm_acc", "msm_tail"):
+        cases += [(name, "1 row", f"1 row of {TAIL_POINTS} points", 20),
+                  (name, f"R={TAIL_ROWS}", f"{TAIL_ROWS} rows of {TAIL_K} points", 20)]
+    cases = [c for c in cases if c[0] in args.only]
+    same = {}
+    for name, key, _, _ in cases:
+        a, b = run("old", name, key), run("new", name, key)
+        if name == "msm_acc":
+            a, b = limbs_last(a), limbs_last(b)
+        same[f"{name} {key}"] = same_points(a, b) if name in CHANGED else same_limbs(a, b)
+    print(f"old == new (base_mul and msm_acc as projective points, the others limb for "
+          f"limb): {same}", flush=True)
+    if not all(same.values()):
         print("kernel_ab: the two builds disagree", file=sys.stderr)
         return 1
 
-    cases = [("scalar_mul", f"N={N_SCALAR}", run_old_sm, run_new_sm, 10)]
-    for key, s in tails.items():
-        cases.append(("msm_tail", key, lambda key=key: run_old_tail(key),
-                      lambda s=s: kp.msm_tail(s), 20))
-    shapes = {"base_mul": f"N={N_SCALAR}", "msm_table": f"{TAIL_POINTS} points",
-              "msm_acc": f"1 row of {TAIL_POINTS} points"}
-    for k in SAME_SCHEDULE:
-        cases.append((k, shapes[k], lambda k=k: run_old_same(k), new_runs[k], 20))
-    for name, shape, run_old, run_new, reps in cases:
-        t = [time_ms(f, reps) for f in (run_old, run_new, run_new, run_old)]
+    for name, key, shape, reps in cases:
+        t = [time_ms(lambda side=side: run(side, name, key), reps)
+             for side in ("old", "new", "new", "old")]
         print(f"{name} {shape}: old {t[0]:.4f} ms, new {t[1]:.4f} ms, new {t[2]:.4f} ms, "
               f"old {t[3]:.4f} ms (CUDA events, {reps} launches each, in that order); "
               f"old/new = {(t[0] + t[3]) / (t[1] + t[2]):.2f} [{card}]", flush=True)
 
-    for kernel in ("scalar_mul_kernel", "msm_tail_kernel"):
-        print(sass_summary(Path(new_lib._name), kernel), flush=True)
+    for kernel in (k for k in CHANGED if k in args.only):
+        print(sass_summary(Path(new_lib._name), f"{kernel}_kernel"), flush=True)
+        print("  old: " + sass_summary(out_dir / f"old_{kernel}.so", f"{kernel}_kernel"),
+              flush=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         src = Path(tmp) / "imad_wide.cu"
         src.write_text(IMAD_SRC)
@@ -288,13 +331,13 @@ def main() -> int:
         src_t = torch.arange(1, 33, dtype=torch.int32, device=dev)
         out_t = torch.empty(blocks * threads, dtype=torch.int64, device=dev)
 
-        def run():
+        def run_imad():
             rc = fn(src_t.data_ptr(), out_t.data_ptr(), blocks, threads, iters,
                     torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"imad_wide: CUDA error {rc}")
 
-        ms = time_ms(run, 5)
+        ms = time_ms(run_imad, 5)
         products = blocks * threads * iters * 16
         per_clk = products / (ms * 1e-3) / sms / (max_mhz * 1e6)
         print(f"mad.wide.s32 rate: {products:.4e} products in {ms:.4f} ms = "

@@ -23,7 +23,7 @@ from ..device import resolve_device
 from . import exact as ex
 from . import point as pt
 from .cuda_point import msm, msm_rows, pad_rows  # noqa: F401  (callers take them from here)
-from .msm_plain import (MSM_LANES, msm_table, msm_tail,  # noqa: F401  (plain versions)
+from .msm_plain import (MSM_LANES, msm_slices, msm_table, msm_tail,  # noqa: F401  (plain versions)
                         msm_window_sums, select)
 
 

@@ -4,7 +4,8 @@
 
 1. :func:`msm_table`: per point its multiples 0..15 (``csrc/msm_table.cu``);
 2. :func:`msm_window_sums`: per row, window and lane the sum of the selected
-   multiples of the lane's points (``csrc/msm_acc.cu``);
+   multiples of the lane's points, in slices folded by a tree
+   (``csrc/msm_acc.cu``);
 3. :func:`msm_tail`: per row and window the sum over the lanes, then one
    Horner chain over the 64 window totals (``csrc/msm_tail.cu``).
 
@@ -23,6 +24,8 @@ from . import point as pt
 
 #: lanes of a row's accumulators; the constant MSM_LANES of csrc/msm_layout.cuh
 MSM_LANES = 128
+#: the most slices a lane's tiles are split into (csrc/msm_acc.cu)
+MSM_MAX_SLICES = 4
 
 
 def select(table: pt.ExtPoint, digit: torch.Tensor) -> pt.ExtPoint:
@@ -39,22 +42,43 @@ def msm_table(p: pt.ExtPoint) -> pt.ExtPoint:
     return pt.ExtPoint(*(c.permute(1, 2, 0).contiguous() for c in pt.window_table(p)))
 
 
+def msm_slices(tiles: int) -> int:
+    """Slices of a lane's tiles in ``csrc/msm_acc.cu`` (``msm_slices``): the
+    largest power of two S <= MSM_MAX_SLICES with 2 * S <= tiles. It depends
+    on the tiles alone, so a row's sums do not depend on the other rows."""
+    s = 1
+    while 4 * s <= tiles and 2 * s <= MSM_MAX_SLICES:
+        s <<= 1
+    return s
+
+
 def msm_window_sums(digits: torch.Tensor, table: pt.ExtPoint, rows: int) -> pt.ExtPoint:
     """digits int32 [64, n], table coords [16, NL, n], n = rows * tiles *
-    MSM_LANES -> coords [rows, 64, NL, MSM_LANES]. Lane j of a row starts
-    from the identity and adds its points in order, one per tile."""
+    MSM_LANES -> coords [rows, 64, NL, MSM_LANES]. Per lane and window,
+    slice s of S = msm_slices(tiles) starts from the identity and adds the
+    lane's points of tiles s, s + S, ...; then slice s takes slice s + step
+    for step = S/2 .. 1."""
     n = digits.shape[1]
     tiles = n // (rows * MSM_LANES)
     if rows < 1 or rows * tiles * MSM_LANES != n:
         raise ValueError(f"{n} points are not {rows} rows of whole {MSM_LANES}-lane tiles")
+    slices = msm_slices(tiles)
     d = digits.reshape(pt.NWINDOWS, rows, tiles, MSM_LANES)
     tab = [c.reshape(16, fe.NLIMBS, rows, tiles, MSM_LANES) for c in table]
-    acc = pt.identity((rows, pt.NWINDOWS, MSM_LANES), digits.device)
-    for t in range(tiles):
-        # [rows, 1, lanes, 16, NL], shared by the 64 windows
-        tile = pt.ExtPoint(*(c[:, :, :, t].permute(2, 3, 0, 1)[:, None] for c in tab))
-        acc = pt.add(acc, select(tile, d[:, :, t].permute(1, 0, 2)))
-    return pt.ExtPoint(*(c.permute(0, 1, 3, 2).contiguous() for c in acc))
+    acc = pt.identity((rows, pt.NWINDOWS, slices, MSM_LANES), digits.device)
+    for t0 in range(0, tiles, slices):
+        a = min(slices, tiles - t0)  # the slices that have tile t0 + slice
+        # [rows, 1, a, lanes, 16, NL], shared by the 64 windows
+        tile = pt.ExtPoint(*(c[:, :, :, t0:t0 + a].permute(2, 3, 4, 0, 1)[:, None] for c in tab))
+        head = pt.add(pt.ExtPoint(*(c[:, :, :a] for c in acc)),
+                      select(tile, d[:, :, t0:t0 + a].permute(1, 0, 2, 3)))
+        acc = pt.ExtPoint(*(torch.cat([h, c[:, :, a:]], dim=2) for h, c in zip(head, acc)))
+    step = slices // 2
+    while step:
+        acc = pt.add(pt.ExtPoint(*(c[:, :, :step] for c in acc)),
+                     pt.ExtPoint(*(c[:, :, step:2 * step] for c in acc)))
+        step //= 2
+    return pt.ExtPoint(*(c[:, :, 0].permute(0, 1, 3, 2).contiguous() for c in acc))
 
 
 def msm_tail(sums: pt.ExtPoint) -> pt.ExtPoint:

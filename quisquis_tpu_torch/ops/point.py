@@ -277,14 +277,21 @@ def scalar_mul(nibbles: torch.Tensor, p: ExtPoint) -> ExtPoint:
                     lambda w: select_cached(table, digits[:, w]))
 
 
+#: threads a lane of csrc/base_mul.cu: part t adds windows t, t + 4, ...
+BASE_PARTS = 4
+#: int32 of one fixed-base table entry: y+x, y-x, 2dxy and two of padding
+BASE_ENTRY_INTS = 32
+
+
 def niels_base_table_np() -> np.ndarray:
-    """int32 [64, 16, 3, NL]: entry k of window w is (16^w * k) * B in
-    affine niels form (y+x, y-x, 2d*x*y); entry 0 is (1, 1, 0)."""
+    """int32 [65, 8, 32]: entry k - 1 of window w is (16^w * k) * B for
+    k = 1..8 in affine niels form, y+x, y-x, 2d*x*y in ints 0..29; ints 30
+    and 31 are zero (an entry is eight 16-byte loads in the kernel)."""
     rows = []
     base = ex.BASEPOINT
-    for _ in range(NWINDOWS):
-        entry = ex.IDENTITY
-        for _ in range(16):
+    for _ in range(SIGNED_DIGITS):
+        entry = base
+        for _ in range(8):
             X, Y, Z, _t = entry
             zi = ex.fe_invert(Z)
             x, y = X * zi % ex.P, Y * zi % ex.P
@@ -292,7 +299,9 @@ def niels_base_table_np() -> np.ndarray:
             entry = ex.pt_add(entry, base)
         for _ in range(WINDOW_BITS):
             base = ex.pt_double(base)
-    return fe.from_int_batch(rows).reshape(NWINDOWS, 16, 3, fe.NLIMBS)
+    table = fe.from_int_batch(rows).reshape(SIGNED_DIGITS, 8, 3 * fe.NLIMBS)
+    pad = np.zeros((SIGNED_DIGITS, 8, BASE_ENTRY_INTS - 3 * fe.NLIMBS), dtype=table.dtype)
+    return np.ascontiguousarray(np.concatenate([table, pad], axis=-1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,17 +315,43 @@ def niels_base_table(device: torch.device) -> torch.Tensor:
     return fe.to_tensor(_niels_np(), device)
 
 
+def select_niels(windows: torch.Tensor, digit: torch.Tensor):
+    """windows int32 [a, 8, 32] (rows of the fixed-base table), digit int
+    [B, a] in -8..8 -> (y+x, y-x, 2dxy), each [B, a, NL]: entry |digit| of
+    each window, the identity (1, 1, 0) for 0, negated where digit < 0 (y+x
+    and y-x swapped, 2dxy negated)."""
+    mag = digit.abs().long()
+    cols = torch.arange(windows.shape[0], device=digit.device)
+    e = windows[cols, (mag - 1).clamp(min=0)]  # [B, a, 32]
+    zero, neg = mag == 0, digit < 0
+    one = fe.ones(digit.shape, digit.device)
+    yx = fe.select(zero, one, e[..., :fe.NLIMBS])
+    ymx = fe.select(zero, one, e[..., fe.NLIMBS:2 * fe.NLIMBS])
+    td2 = fe.select(zero, fe.zeros(digit.shape, digit.device), e[..., 2 * fe.NLIMBS:3 * fe.NLIMBS])
+    return fe.select(neg, ymx, yx), fe.select(neg, yx, ymx), fe.select(neg, fe.neg(td2), td2)
+
+
 def base_mul(nibbles: torch.Tensor) -> ExtPoint:
-    """Fixed-base s*B: 64 niels mixed additions from the identity, no
-    doublings. nibbles [B, 64]."""
+    """Fixed-base s*B, nibbles [B, 64] little-endian, any values 0..15. The
+    kernel's schedule (``csrc/base_mul.cu``): 65 signed digits; part t of
+    BASE_PARTS adds windows t, t + BASE_PARTS, ... to the identity by niels
+    mixed additions (no doublings); the parts are folded in a tree (part t
+    takes part t + step, step = BASE_PARTS/2 .. 1) by additions of the
+    cached form, the kernel's quad additions."""
     table = niels_base_table(nibbles.device)
-    n = nibbles.shape[0]
-    acc = identity((n,), nibbles.device)
-    for w in range(NWINDOWS):
-        idx = nibbles[:, w].long()
-        entry = table[w][idx]  # [B, 3, NL]
-        acc = add_niels(acc, entry[:, 0], entry[:, 1], entry[:, 2])
-    return acc
+    digits = signed_digits(nibbles)
+    acc = identity((nibbles.shape[0], BASE_PARTS), nibbles.device)
+    for w0 in range(0, SIGNED_DIGITS, BASE_PARTS):
+        a = min(BASE_PARTS, SIGNED_DIGITS - w0)  # the parts that have window w0 + part
+        head = add_niels(ExtPoint(*(c[:, :a] for c in acc)),
+                         *select_niels(table[w0:w0 + a], digits[:, w0:w0 + a]))
+        acc = ExtPoint(*(torch.cat([h, c[:, a:]], dim=1) for h, c in zip(head, acc)))
+    step = BASE_PARTS // 2
+    while step:
+        acc = add_cached(ExtPoint(*(c[:, :step] for c in acc)),
+                         to_cached(ExtPoint(*(c[:, step:2 * step] for c in acc))))
+        step //= 2
+    return ExtPoint(*(c[:, 0].contiguous() for c in acc))
 
 
 # ---------------------------------------------------------------------------

@@ -113,7 +113,8 @@ void h_msm_acc(const int32_t* digits, const int32_t* tx, const int32_t* ty, cons
     for (int w = 0; w < MSM_WINDOWS; ++w)
       for (int j = 0; j < MSM_LANES; ++j) {
         const long first = (long)r * tiles * MSM_LANES + j;
-        const ge acc = msm_acc_lane(digits + w * n, tx, ty, tz, tt, first, tiles, n);
+        const ge acc =
+            msm_acc_lane(digits + w * n, tx, ty, tz, tt, first, tiles, msm_slices(tiles), n);
         ge_store_strided(wx, wy, wz, wt, ((long)r * MSM_WINDOWS + w) * NL * MSM_LANES + j,
                          MSM_LANES, acc);
       }
@@ -353,14 +354,20 @@ def test_scalar_mul_lane(lib):
 
 
 def test_base_mul_lane(lib):
-    scalars = [0, 1, 2, ex.L - 1, 2**252, int("f" * 63, 16) % ex.L, 16, 12345678]
-    nib = np.ascontiguousarray(pt.scalars_to_nibbles(scalars))
+    """base_mul.cu's lane (its four parts run in turn, then the fold) against
+    the plain version limb for limb and exact.py, edge nibbles included: all
+    zeros, all 15s (2^256 - 1), top nibbles 8 and 15 (a carry into the 65th
+    signed digit) and scalars >= l, which B's order l reduces."""
+    scalars = [0, 1, 2, ex.L - 1, 2**252, int("f" * 63, 16) % ex.L, 16, 12345678,
+               2**256 - 1, 8 * 16**63 + 98765, 15 * 16**63 + 4321, ex.L, ex.L + 5, 2**253 + 3]
+    nib = _nibbles_of(scalars)
+    assert nib[0].max() == 0 and nib[8].min() == 15 and (nib[9, 63], nib[10, 63]) == (8, 15)
     table = np.ascontiguousarray(pt.niels_base_table_np())
     out = np.zeros((len(scalars), 4, fe.NLIMBS), dtype=np.int32)
     lib.h_base_mul(_ptr(table), _ptr(nib), _ptr(out), len(scalars))
     enc = pt.compress_to_bytes(_ext(out))
     for row, s in zip(enc, scalars):
-        assert bytes(row) == ex.ristretto_encode(ex.pt_base_mul(s))
+        assert bytes(row) == ex.ristretto_encode(ex.pt_base_mul(s % ex.L))
     plain = pt.base_mul(torch.as_tensor(nib))
     assert np.array_equal(out, np.stack([c.numpy() for c in plain], axis=1))
 
@@ -411,6 +418,34 @@ def test_msm_stages_equal_plain(lib):
     want_rows = [ex.pt_add(edge, ex.pt_msm(scalars[e:k], points[e:k])),
                  ex.pt_msm(scalars[k:], points[k:])]
     assert all(ex.pt_same(g, w) for g, w in zip(pt.to_exact_batch(_ext(out)), want_rows))
+
+
+@pytest.fixture(scope="module")
+def tile_table():
+    """The table of one tile's points (random multiples of B)."""
+    rng = np.random.default_rng(128)
+    nib = torch.as_tensor(rng.integers(0, 16, size=(qmsm.MSM_LANES, 64), dtype=np.int32))
+    return qmsm.msm_table(pt.base_mul(nib))
+
+
+@pytest.mark.parametrize("rows,tiles", [(1, 5), (1, 11), (2, 5)])
+def test_msm_window_sums_in_uneven_slices(lib, tile_table, rows, tiles):
+    """Rows whose tiles do not split evenly into msm_acc.cu's slices (5 tiles
+    in 2 slices; 11 in 4, so slice 3 gets one tile fewer; 5 in 2 at two
+    rows), so that the fold adds sums of different lengths in the kernel's
+    order. Limb for limb against the plain version."""
+    slices = qmsm.msm_slices(tiles)
+    assert (slices, tiles % slices) == {5: (2, 1), 11: (4, 3)}[tiles]
+    n = rows * tiles * qmsm.MSM_LANES
+    rng = np.random.default_rng(tiles)
+    digits = torch.as_tensor(rng.integers(0, 16, size=(64, n), dtype=np.int32))
+    # one tile's points in every tile (the digits differ)
+    table = pt.ExtPoint(*(c.repeat(1, 1, n // qmsm.MSM_LANES) for c in tile_table))
+    want = qmsm.msm_window_sums(digits, table, rows)
+    sums = [np.zeros((rows, 64, fe.NLIMBS, qmsm.MSM_LANES), dtype=np.int32) for _ in range(4)]
+    lib.h_msm_acc(_ptr(np.ascontiguousarray(digits.numpy())), *map(_ptr, _coords_np(table)),
+                  *map(_ptr, sums), rows, tiles)
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(sums, want))
 
 
 def test_keccak_permutation_equals_plain_and_host(lib):

@@ -50,13 +50,15 @@ def test_kernels_equal_plain_on_a_ragged_batch(dev):
     for c, e in zip(p, pt.from_exact_batch(host, dev)):
         c[:5] = e
     before = dict(kp.LAUNCHES)
-    k_s, k_b = kp.scalar_mul(nib_sm, p), kp.base_mul(nib)
+    k_s, k_b = kp.scalar_mul(nib_sm, p), kp.base_mul(nib_sm)
     assert kp.LAUNCHES == {k: v + (k in ("scalar_mul", "base_mul")) for k, v in before.items()}
     # the same arithmetic in the same order: limb-identical to the plain versions
     assert all(torch.equal(a, b) for a, b in zip(k_s, pt.scalar_mul(nib_sm, p)))
     got = pt.to_exact_batch(pt.ExtPoint(*(c[:5] for c in k_s)))
     assert all(ex.pt_same(g, ex.pt_mul_int(v, q)) for g, v, q in zip(got, raw, host))
-    assert all(torch.equal(a, b) for a, b in zip(k_b, pt.base_mul(nib)))
+    assert all(torch.equal(a, b) for a, b in zip(k_b, pt.base_mul(nib_sm)))
+    got = pt.to_exact_batch(pt.ExtPoint(*(c[:5] for c in k_b)))
+    assert all(ex.pt_same(g, ex.pt_base_mul(v % ex.L)) for g, v in zip(got, raw))
 
 
 def test_wrappers_check_their_inputs(dev):
@@ -76,7 +78,13 @@ def test_wrappers_check_their_inputs(dev):
 
 
 def test_msm_stages_equal_plain_in_rows_mode(dev):
-    rows, k = 8, 150  # two tiles a row, the second mostly identity padding
+    # 2 tiles a row (one slice), 5 (two slices, uneven), 9 (four, uneven)
+    for k in (150, 600, 1100):
+        _rows_mode_case(dev, k)
+
+
+def _rows_mode_case(dev, k):
+    rows = 8
     r = random.Random(5)
     nib = torch.as_tensor(pt.scalars_to_nibbles(_scalars(rows * k)), device=dev)
     p = kp.base_mul(torch.as_tensor(

@@ -52,12 +52,22 @@ def test_ext_point_and_nibbles_round_trip():
 
 
 def test_niels_table_equals_jax():
-    """The port's own fixed-base table equals _niels_base_table() value
-    for value."""
+    """The port's own fixed-base table equals _niels_base_table() value for
+    value where both have the entry: windows 0..63, multiples 1..8 (the
+    port's signed digits need no 9..15 and no 0, and add a 65th window,
+    whose entries are held against exact.py)."""
     carried = interop.niels_table_from_jax(_niels_base_table(), device="cpu")
     own = pt.niels_base_table_np()
-    assert carried.shape == own.shape == (64, 16, 3, fe.NLIMBS)
-    assert np.array_equal(carried.numpy(), own)
+    assert carried.shape == (64, 16, 3, fe.NLIMBS)
+    assert own.shape == (65, 8, pt.BASE_ENTRY_INTS)
+    entries = own[..., :3 * fe.NLIMBS].reshape(65, 8, 3, fe.NLIMBS)
+    assert np.array_equal(carried.numpy()[:, 1:9], entries[:64])
+    assert not own[..., 3 * fe.NLIMBS:].any()
+    for k in (1, 8):
+        X, Y, Z, _ = ex.pt_base_mul(k * 16**64 % ex.L)
+        x, y = X * ex.fe_invert(Z) % ex.P, Y * ex.fe_invert(Z) % ex.P
+        want = [(y + x) % ex.P, (y - x) % ex.P, x * y * ex.D2 % ex.P]
+        assert fe.to_int_batch(entries[64, k - 1]) == want
 
 
 def test_scalar_limbs_and_keccak_states_round_trip():
