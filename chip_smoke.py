@@ -37,8 +37,12 @@ Phases, each printed on its own line:
      launch counters of that one verify call show the four kernels ran;
   9. the four kernels at the verifier's own MSM and transcript shapes
      against their plain versions, and times on this card: each kernel and
-     its plain version, msm_tail's chain floor, verify wall time and proofs
-     per second, the device's busy share over one profiled call;
+     its plain version (msm_table and keccak_f1600, launches of tens of
+     microseconds or less, by replaying a CUDA graph of back-to-back
+     launches; their time through the wrapper, host enqueue included, on a
+     line of its own), msm_tail's and Keccak's chain floors, verify wall
+     time and proofs per second, the device's busy share over one profiled
+     call;
  10. one JSON line per contract with every kernel's numbers, then the
      final status line.
 
@@ -89,6 +93,9 @@ TAIL_CHAIN_ROUNDS = 2 * (252 + 64)
 # xors and 5 rotates, rho+pi 24 rotates, chi 75, iota 1. Each is two 32-bit
 # operations: a rotate by a constant is two funnel shifts
 KECCAK_OPS_PER_STATE = 24 * 155 * 2
+# the kernel's chain: 24 rounds of three dependent exchange steps (column
+# parity, theta, pi and chi) on the warp that holds a state
+KECCAK_CHAIN_STEPS = 24 * 3
 KERNELS = {
     "scalar_mul": ("quisquis_tpu_torch/csrc/scalar_mul.cu", "quisquis_tpu/ops/pallas_point.py:79"),
     "base_mul": ("quisquis_tpu_torch/csrc/base_mul.cu", "quisquis_tpu/ops/pallas_point.py:212"),
@@ -210,6 +217,7 @@ def phases(pool) -> int:
     from quisquis_tpu_torch.accounts.transcript import SeededRng
     from quisquis_tpu_torch.bulletproofs.device_verify import DeviceRangeVerifier
     from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
+    from quisquis_tpu_torch.kernel_ab import graph_ms
     from quisquis_tpu_torch.ops import batch as qb
     from quisquis_tpu_torch.ops import cuda_build as cb
     from quisquis_tpu_torch.ops import cuda_keccak as kk
@@ -609,10 +617,31 @@ def phases(pool) -> int:
     check(tuple(state9.shape) == (RANGE_BATCH, 200), f"transcript states {tuple(state9.shape)}")
     plain_keccak, plain_ms["keccak_f1600"] = time_once(lambda: dk.f1600_plain(state9))
     check(torch.equal(kk.f1600(state9), plain_keccak), "keccak_f1600 == plain on a transcript state")
-    ms["msm_table"] = time_ms(lambda: kp.msm_table(flat9), reps=20, warmup=3)
     ms["msm_acc"] = time_ms(lambda: kp.msm_window_sums(digits9, table9, 1), reps=20, warmup=3)
     ms["msm_tail"] = time_ms(lambda: kp.msm_tail(sums9), reps=20, warmup=3)
-    ms["keccak_f1600"] = time_ms(lambda: kk.f1600(state9), reps=50, warmup=3)
+    # msm_table and keccak_f1600: device time from a graph of back-to-back
+    # launches of their C entry points (no count, no host work between)
+    lib = cb.load_library()
+    out_table = pt.ExtPoint(*(torch.empty_like(c) for c in table9))
+    out_state = torch.empty_like(state9)
+
+    def direct(fn, *args):
+        def run():
+            check(fn(*args, torch.cuda.current_stream().cuda_stream) == 0, "direct launch")
+        return run
+
+    ms["msm_table"] = graph_ms(direct(lib.qq_msm_table, *(c.data_ptr() for c in flat9),
+                                      *(c.data_ptr() for c in out_table), n9))
+    ms["keccak_f1600"] = graph_ms(direct(lib.qq_keccak_f1600, state9.data_ptr(),
+                                         out_state.data_ptr(), RANGE_BATCH))
+    check(torch.equal(out_state, plain_keccak), "keccak_f1600 graph launches == plain")
+    check(limb_err(out_table, table9) == 0, "msm_table graph launches == kernel")
+    wrapped = {"msm_table": time_ms(lambda: kp.msm_table(flat9), reps=20, warmup=3),
+               "keccak_f1600": time_ms(lambda: kk.f1600(state9), reps=50, warmup=3)}
+    say(9, f"through the wrappers (what a caller pays, host enqueue included; CUDA events "
+           f"over 20 and 50 calls): msm_table {wrapped['msm_table']:.4f} ms, keccak_f1600 "
+           f"{wrapped['keccak_f1600']:.4f} ms; device time by graph replay: "
+           f"{ms['msm_table']:.4f} and {ms['keccak_f1600']:.4f} ms [{card}]")
     lanes9 = qmsm.MSM_LANES
     point_bytes, sums_bytes = 4 * fe.NLIMBS * 4, 64 * 4 * fe.NLIMBS * lanes9 * 4
     shape9 = f"{n_msm} points padded to {n9}"
@@ -628,6 +657,10 @@ def phases(pool) -> int:
            f"all [{card}]")
     record(9, "keccak_f1600", f"{RANGE_BATCH} states", verify_launches["keccak_f1600"],
            RANGE_BATCH * KECCAK_OPS_PER_STATE, RANGE_BATCH * 400, "32-bit logic operations")
+    say(9, f"keccak_f1600 chain floor: 24 rounds x 3 dependent exchange steps = "
+           f"{KECCAK_CHAIN_STEPS} steps on one warp a state; {ms['keccak_f1600'] * 1e3:.2f} us = "
+           f"{ms['keccak_f1600'] * 1e6 / KECCAK_CHAIN_STEPS:.0f} ns a step if the chain took it "
+           f"all [{card}]")
 
     def timed_verify():
         torch.cuda.synchronize()

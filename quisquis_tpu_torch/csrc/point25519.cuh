@@ -105,18 +105,6 @@ QQ_HD void ge_cmov(ge& r, const ge& a, int32_t mask) {
   fe_cmov(r.t, a.t, mask);
 }
 
-// table[k] = k*P for k = 0..15: doublings for the even entries, one addition
-// of P for the odd ones (the TPU kernels' schedule; plain version:
-// window_table in quisquis_tpu_torch/ops/point.py)
-QQ_HD void ge_table16(const ge& p, ge table[16]) {
-  table[0] = ge_identity();
-  table[1] = p;
-  QQ_NOUNROLL
-  for (int k = 2; k < 16; ++k) {
-    table[k] = (k & 1) ? ge_add<true>(table[k - 1], p) : ge_double<true>(table[k >> 1]);
-  }
-}
-
 // mask = -1 if a == b else 0, computed without a branch
 QQ_HD int32_t eq_mask(int32_t a, int32_t b) {
   const uint32_t d = (uint32_t)(a ^ b);

@@ -1,35 +1,38 @@
-"""Time this checkout's point kernels against another checkout's, in one
+"""Time this checkout's kernels against another checkout's, in one
 process on one GPU, and measure the card's rate of 32x32->64
 multiply-adds.
 
-    python3 -m quisquis_tpu_torch.kernel_ab --old-csrc OTHER/quisquis_tpu_torch/csrc
+    python3 -m quisquis_tpu_torch.kernel_ab --old-csrc OTHER/quisquis_tpu_torch/csrc \
+        [--only msm_table keccak_f1600]
 
 ``--old-csrc`` is the ``csrc`` directory of the other checkout (for
-example the parent commit unpacked with ``git archive``). Its
-``scalar_mul.cu``, ``msm_tail.cu``, ``base_mul.cu``, ``msm_table.cu`` and
-``msm_acc.cu`` are built with the same nvcc flags into
-``build/kernel_ab/``; their C entry points must have the signatures of
-``ops/cuda_build.py``. The old ``base_mul.cu`` is given the table of its
-own layout, 16 unsigned entries a window ([64, 16, 3, 10], built here by
-:func:`unsigned_niels_table`). The script prints:
+example the parent commit unpacked with ``git archive``). Its six kernel
+sources (or those ``--only`` names) are built with the same nvcc flags
+into ``build/kernel_ab/``; their C entry points must have the signatures
+of ``ops/cuda_build.py``. The script prints:
 
 1. the card's name and power limit (nvidia-smi) and ptxas's registers,
    stack and spills of both builds;
-2. that both builds give the same points at the main paths' shapes:
-   base_mul at N = 16,384 per lane and msm_acc per (row, window, lane) at
-   one row of 4,736 points and at R = 8 rows of 256, as projective points
-   (X1 Z2 = X2 Z1, Y1 Z2 = Y2 Z1: their schedules differ in
-   :data:`CHANGED`); scalar_mul at N = 16,384, msm_table on 4,736 points
-   and msm_tail at one row and at R = 8 limb for limb;
-3. each kernel's time by CUDA events, in turns: old, new, new, old. Both
-   builds are launched through their C entry points on preallocated
-   outputs, so the times hold no host work of the torch wrappers;
+2. that both builds give the same results at the main paths' shapes:
+   msm_table at one row of 4,736 points and at R = 8 rows of 256 as
+   projective points (X1 Z2 = X2 Z1, Y1 Z2 = Y2 Z1: a changed addition
+   formula may change limbs, :data:`AS_POINTS`); scalar_mul and base_mul
+   at N = 16,384 and msm_acc and msm_tail at both MSM shapes limb for
+   limb; keccak_f1600 at 64 and 1,024 states byte for byte;
+3. each kernel's device time by replaying a CUDA graph that captured
+   :data:`GRAPH_LAUNCHES` back-to-back launches, in turns: old, new, new,
+   old; beside it the time of the same launches issued one by one from
+   Python, by CUDA events (for kernels of tens of microseconds or less,
+   the host work of a ctypes launch is about as long as the kernel and
+   hides it there). Both builds are launched through their C entry points
+   on preallocated outputs, so no time holds the torch wrappers' host work;
 4. the SASS opcodes of the changed kernels (cuobjdump), with how many
    IMAD.WIDE instructions each holds and where its local-memory loads and
    stores (spills) sit among its barriers, and the measured rate of a kernel that
    does nothing but independent ``mad.wide.s32`` (32x32->64 multiply-add
    into 64 bits), in products per clock per SM at the card's maximum SM
-   clock.
+   clock, and the graph-replay time of an empty kernel (the floor under
+   every short kernel's time in 3).
 
 It needs a CUDA GPU and nvcc, and exits non-zero without them.
 """
@@ -50,7 +53,7 @@ import torch
 
 from .ops import cuda_build as cb
 from .ops import cuda_point as kp
-from .ops import exact as ex
+from .ops import device_keccak
 from .ops import field as fe
 from .ops import point as pt
 
@@ -60,10 +63,13 @@ TAIL_ROWS, TAIL_K = 8, 256
 SEED = 20261017
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-#: kernels whose schedules this checkout changed: compared as points
-CHANGED = ("base_mul", "msm_acc")
-_OLD_ENTRIES = {k: cb.KERNELS[k] for k in
-                ("scalar_mul", "msm_tail", "base_mul", "msm_table", "msm_acc")}
+KECCAK_STATES = (64, 1_024)   # the range verifier's transcripts; a larger batch
+#: kernels this checkout redesigned: their SASS summaries print
+CHANGED = ("msm_table", "keccak_f1600")
+#: kernels compared across builds as projective points, not limb for limb
+AS_POINTS = ("msm_table",)
+GRAPH_LAUNCHES = 20
+_OLD_ENTRIES = dict(cb.KERNELS)
 
 IMAD_SRC = r"""
 #include <stdint.h>
@@ -87,6 +93,12 @@ extern "C" int run_imad_wide(const void* in, void* out, int blocks, int threads,
                              void* stream) {
   imad_wide<<<blocks, threads, 0, (cudaStream_t)stream>>>((const int32_t*)in, (int64_t*)out,
                                                            iters);
+  return (int)cudaGetLastError();
+}
+// a kernel that does nothing: the floor of a launch in a graph
+extern "C" __global__ void empty_kernel() {}
+extern "C" int run_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 """
@@ -135,22 +147,29 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def unsigned_niels_table(dev: torch.device) -> torch.Tensor:
-    """The fixed-base table of slices 1-3's base_mul.cu: int32 [64, 16, 3,
-    10], entry k of window w is (16^w * k) * B in affine niels form (y+x,
-    y-x, 2d*x*y), entry 0 is (1, 1, 0)."""
-    rows, base = [], ex.BASEPOINT
-    for _ in range(pt.NWINDOWS):
-        entry = ex.IDENTITY
-        for _ in range(16):
-            X, Y, Z, _t = entry
-            zi = ex.fe_invert(Z)
-            x, y = X * zi % ex.P, Y * zi % ex.P
-            rows += [(y + x) % ex.P, (y - x) % ex.P, x * y % ex.P * ex.D2 % ex.P]
-            entry = ex.pt_add(entry, base)
-        for _ in range(pt.WINDOW_BITS):
-            base = ex.pt_double(base)
-    return fe.to_tensor(fe.from_int_batch(rows).reshape(pt.NWINDOWS, 16, 3, fe.NLIMBS), dev)
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
+    """Device time of one fn() in ms: a CUDA graph captures `launches`
+    back-to-back calls of fn (each a kernel launch on the current stream),
+    then `replays` replays are timed by CUDA events, so no host work sits
+    between the kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
 
 
 def same_points(a: pt.ExtPoint, b: pt.ExtPoint) -> bool:
@@ -160,7 +179,8 @@ def same_points(a: pt.ExtPoint, b: pt.ExtPoint) -> bool:
 
 
 def limbs_last(sums: pt.ExtPoint) -> pt.ExtPoint:
-    """Window sums [rows, 64, NL, lanes] -> points [rows, 64, lanes, NL]."""
+    """Limbs-before-points coordinates [..., NL, n] (window sums, tables)
+    -> points [..., n, NL]."""
     return pt.ExtPoint(*(c.transpose(-1, -2).contiguous() for c in sums))
 
 
@@ -198,7 +218,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", required=True, type=Path)
     ap.add_argument("--only", nargs="+", choices=tuple(_OLD_ENTRIES), default=tuple(_OLD_ENTRIES),
-                    help="compare and time these kernels only (default: all five)")
+                    help="compare and time these kernels only (default: all six)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA GPU is available", file=sys.stderr)
@@ -246,11 +266,12 @@ def main() -> int:
     def empty(shape):
         return pt.ExtPoint(*(torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(4)))
 
-    # scalar_mul and base_mul at N = 16,384; each build's base_mul gets the
-    # table of its own layout
+    # scalar_mul and base_mul at N = 16,384
     nib = nibbles(N_SCALAR)
     base = kp.base_mul(nibbles(N_SCALAR))
-    tables = {"old": unsigned_niels_table(dev), "new": pt.niels_base_table(dev)}
+    niels = pt.niels_base_table(dev)
+    states = {f"{b} states": torch.as_tensor(rng.integers(0, 256, size=(b, 200), dtype=np.uint8),
+                                             device=dev) for b in KECCAK_STATES}
 
     # the MSM stages: one row of 4,736 points (the range verifier's MSM,
     # padded) and R = 8 rows of 256
@@ -272,12 +293,17 @@ def main() -> int:
         if name in ("scalar_mul", "base_mul"):
             o = outs.setdefault((side, name), empty((N_SCALAR, fe.NLIMBS)))
             first = ((nib.data_ptr(), *ptrs(base)) if name == "scalar_mul" else
-                     (tables[side].data_ptr(), nib.data_ptr()))
+                     (niels.data_ptr(), nib.data_ptr()))
             call(side, name, *first, *ptrs(o), N_SCALAR)
+            return o
+        if name == "keccak_f1600":
+            st = states[key]
+            o = outs.setdefault((side, name, key), torch.empty_like(st))
+            call(side, name, st.data_ptr(), o.data_ptr(), st.shape[0])
             return o
         rows, digits, flat, table = msm_in[key]
         if name == "msm_table":
-            o = outs.setdefault((side, name), empty((16, fe.NLIMBS, flat.x.shape[0])))
+            o = outs.setdefault((side, name, key), empty((16, fe.NLIMBS, flat.x.shape[0])))
             call(side, name, *ptrs(flat), *ptrs(o), flat.x.shape[0])
         elif name == "msm_acc":
             o = outs.setdefault((side, name, key), empty((rows, 64, fe.NLIMBS, 128)))
@@ -291,29 +317,36 @@ def main() -> int:
                  rows, 128)
         return o
 
-    cases = [("scalar_mul", one, one, 10), ("base_mul", one, one, 20),
-             ("msm_table", "1 row", f"{TAIL_POINTS} points", 20)]
-    for name in ("msm_acc", "msm_tail"):
+    cases = [("scalar_mul", one, one, 10), ("base_mul", one, one, 20)]
+    for name in ("msm_table", "msm_acc", "msm_tail"):
         cases += [(name, "1 row", f"1 row of {TAIL_POINTS} points", 20),
                   (name, f"R={TAIL_ROWS}", f"{TAIL_ROWS} rows of {TAIL_K} points", 20)]
+    cases += [("keccak_f1600", key, key, 50) for key in states]
     cases = [c for c in cases if c[0] in args.only]
     same = {}
     for name, key, _, _ in cases:
         a, b = run("old", name, key), run("new", name, key)
-        if name == "msm_acc":
+        if name == "keccak_f1600":
+            same[f"{name} {key}"] = torch.equal(a, b) and torch.equal(
+                b, device_keccak.f1600_plain(states[key]))
+            continue
+        if name in ("msm_table", "msm_acc"):
             a, b = limbs_last(a), limbs_last(b)
-        same[f"{name} {key}"] = same_points(a, b) if name in CHANGED else same_limbs(a, b)
-    print(f"old == new (base_mul and msm_acc as projective points, the others limb for "
-          f"limb): {same}", flush=True)
+        same[f"{name} {key}"] = same_points(a, b) if name in AS_POINTS else same_limbs(a, b)
+    print(f"old == new ({', '.join(AS_POINTS)} as projective points, keccak_f1600 byte for "
+          f"byte and == the plain version, the others limb for limb): {same}", flush=True)
     if not all(same.values()):
         print("kernel_ab: the two builds disagree", file=sys.stderr)
         return 1
 
+    order = ("old", "new", "new", "old")
     for name, key, shape, reps in cases:
-        t = [time_ms(lambda side=side: run(side, name, key), reps)
-             for side in ("old", "new", "new", "old")]
-        print(f"{name} {shape}: old {t[0]:.4f} ms, new {t[1]:.4f} ms, new {t[2]:.4f} ms, "
-              f"old {t[3]:.4f} ms (CUDA events, {reps} launches each, in that order); "
+        g = [graph_ms(lambda side=side: run(side, name, key)) for side in order]
+        t = [time_ms(lambda side=side: run(side, name, key), reps) for side in order]
+        print(f"{name} {shape}: device time by graph replay ({GRAPH_LAUNCHES} launches a "
+              f"graph, in turns old, new, new, old): {g[0]:.4f}, {g[1]:.4f}, {g[2]:.4f}, "
+              f"{g[3]:.4f} ms, old/new = {(g[0] + g[3]) / (g[1] + g[2]):.2f}; launched one by "
+              f"one, CUDA events over {reps}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.4f} ms, "
               f"old/new = {(t[0] + t[3]) / (t[1] + t[2]):.2f} [{card}]", flush=True)
 
     for kernel in (k for k in CHANGED if k in args.only):
@@ -337,6 +370,11 @@ def main() -> int:
             if rc != 0:
                 raise RuntimeError(f"imad_wide: CUDA error {rc}")
 
+        empty = lib.run_empty
+        empty.argtypes, empty.restype = [_VP], _CI
+        floor = graph_ms(lambda: empty(torch.cuda.current_stream().cuda_stream))
+        print(f"launch floor: an empty kernel (one block of 32 threads) takes {floor:.4f} ms a "
+              f"launch by graph replay [{card}]", flush=True)
         ms = time_ms(run_imad, 5)
         products = blocks * threads * iters * 16
         per_clk = products / (ms * 1e-3) / sms / (max_mhz * 1e6)

@@ -174,10 +174,12 @@ def _stack(points, dim: int) -> ExtPoint:
 
 def window_table(p: ExtPoint) -> ExtPoint:
     """[B, 16, NL] coords of 0..15 * p: doublings for even entries, one
-    addition of p for odd ones (msm_table's schedule)."""
+    addition of p's cached form for odd ones (msm_table's schedule and
+    formulas: ``quad_double`` and ``quad_add``)."""
+    c1 = to_cached(p)
     table = [identity(p.shape, p.device), p]
     for k in range(2, 16):
-        table.append(double(table[k // 2]) if k % 2 == 0 else add(table[k - 1], p))
+        table.append(double(table[k // 2]) if k % 2 == 0 else add_cached(table[k - 1], c1))
     return _stack(table, dim=1)
 
 

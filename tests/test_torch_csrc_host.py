@@ -99,7 +99,8 @@ void h_base_mul(const int32_t* table, const int32_t* nib, int32_t* out, int n) {
   for (int k = 0; k < n; ++k) st(out + k * 4 * NL, base_mul_lane(table, nib + k * 64));
 }
 
-// p [n, 4, NL] -> table coordinates [16, NL, n] each
+// p [n, 4, NL] -> table coordinates [16, NL, n] each: the four parts'
+// chains in turn, each quad's roles in turn
 void h_msm_table(const int32_t* p, int32_t* tx, int32_t* ty, int32_t* tz, int32_t* tt, int n) {
   for (int i = 0; i < n; ++i) msm_table_lane(ld(p + i * 4 * NL), tx, ty, tz, tt, i, n);
 }
@@ -155,12 +156,17 @@ void h_signed_radix16(const int32_t* nib, int8_t* out, int n) {
 
 int h_msm_lanes() { return MSM_LANES; }
 
-// states uint8 [n, 200], little-endian lanes (this harness runs on x86)
-void h_keccak(const uint8_t* in, uint8_t* out, int n) {
+// states uint8 [n, 200], little-endian lanes (this harness runs on x86);
+// split 1: the kernel's round with its 25 lanes run in turn, 0: the
+// one-thread reference
+void h_keccak(const uint8_t* in, uint8_t* out, int n, int split) {
   for (int i = 0; i < n; ++i) {
     uint64_t a[25];
     memcpy(a, in + i * 200, 200);
-    keccak_f1600_lanes(a);
+    if (split)
+      keccak_f1600_split(a);
+    else
+      keccak_f1600_lanes(a);
     memcpy(out + i * 200, a, 200);
   }
 }
@@ -198,7 +204,7 @@ def lib():
     lib.h_msm_tail.argtypes = [vp] * 5 + [ci]
     lib.h_quad.argtypes = [ci, vp, vp, vp, ci]
     lib.h_signed_radix16.argtypes = [vp, vp, ci]
-    lib.h_keccak.argtypes = [vp, vp, ci]
+    lib.h_keccak.argtypes = [vp, vp, ci, ci]
     for fn in (lib.h_fe, lib.h_ge, lib.h_base_mul, lib.h_msm_table, lib.h_msm_acc,
                lib.h_msm_tail, lib.h_quad, lib.h_signed_radix16, lib.h_keccak):
         fn.restype = None
@@ -449,13 +455,42 @@ def test_msm_window_sums_in_uneven_slices(lib, tile_table, rows, tiles):
 
 
 def test_keccak_permutation_equals_plain_and_host(lib):
+    """keccak_f1600.cu's round, its 25 lanes run in turn through the host
+    exchange policy, and the one-thread reference: byte for byte the plain
+    version and ops/keccak.py on the zero state, the all-0xFF state and
+    random states."""
     states = np.random.default_rng(8).integers(0, 256, (5, 200), dtype=np.uint8)
     states[0] = 0
     states[1] = 255
-    out = np.zeros_like(states)
-    lib.h_keccak(_ptr(states), _ptr(out), 5)
-    assert np.array_equal(out, dk.f1600_plain(torch.as_tensor(states)).numpy())
-    for row, got in zip(states, out):
+    want = dk.f1600_plain(torch.as_tensor(states)).numpy()
+    for row, got in zip(states, want):
         st_ = bytearray(row.tobytes())
         keccak.keccak_f1600(st_)
         assert bytes(st_) == got.tobytes()
+    for split in (1, 0):
+        out = np.zeros_like(states)
+        lib.h_keccak(_ptr(states), _ptr(out), 5, split)
+        assert np.array_equal(out, want)
+
+
+def test_msm_table_parts_equal_plain(lib):
+    """msm_table.cu's body: the four parts' chains, each quad's roles run in
+    turn through QuadHost, store every entry (the table starts as -1s),
+    limb for limb the plain msm_table and exact.py, on the identity, a
+    point of order 8, a point with an 8-torsion component and random
+    points."""
+    r = random.Random(16)
+    t8 = ex.eight_torsion()
+    points = [ex.IDENTITY, t8] + [ex.pt_base_mul(r.randrange(1, ex.L)) for _ in range(5)]
+    points[2] = ex.pt_add(points[2], t8)
+    p = pt.from_exact_batch(points, "cpu")
+    n = len(points)
+    table = [np.full((16, fe.NLIMBS, n), -1, dtype=np.int32) for _ in range(4)]
+    p_np = np.ascontiguousarray(np.stack(_coords_np(p), axis=1))
+    lib.h_msm_table(_ptr(p_np), *map(_ptr, table), n)
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(table, qmsm.msm_table(p)))
+    # point-major [n * 16, NL]: row 16 i + k is k * points[i]
+    got = pt.to_exact_batch(pt.ExtPoint(*(
+        torch.as_tensor(c.transpose(2, 0, 1).reshape(n * 16, fe.NLIMBS).copy()) for c in table)))
+    assert all(ex.pt_same(got[i * 16 + k], ex.pt_mul_int(k, q))
+               for i, q in enumerate(points) for k in range(16))

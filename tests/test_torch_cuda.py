@@ -59,6 +59,10 @@ def test_kernels_equal_plain_on_a_ragged_batch(dev):
     assert all(torch.equal(a, b) for a, b in zip(k_b, pt.base_mul(nib_sm)))
     got = pt.to_exact_batch(pt.ExtPoint(*(c[:5] for c in k_b)))
     assert all(ex.pt_same(g, ex.pt_base_mul(v % ex.L)) for g, v in zip(got, raw))
+    # msm_table on 300 points (8 a block: the last block part full), the
+    # identity and 8-torsion points among them
+    table = kp.msm_table(p)
+    assert all(torch.equal(a, b) for a, b in zip(table, qmsm.msm_table(p)))
 
 
 def test_wrappers_check_their_inputs(dev):
@@ -117,8 +121,10 @@ def _rows_mode_case(dev, k):
         kp.msm_tail(pt.ExtPoint(*(c[..., :64].contiguous() for c in sums)))
 
 
-@pytest.mark.parametrize("n", [1, 64, 1000])
+@pytest.mark.parametrize("n", [1, 2, 64, 1000, 1024, 4097])
 def test_keccak_equals_plain(dev, n):
+    """One state a warp, four a block: n = 2 and 4,097 leave blocks part
+    full."""
     gen = torch.Generator().manual_seed(n)
     st = torch.randint(0, 256, (n, 200), generator=gen, dtype=torch.uint8).to(dev)
     before = kp.LAUNCHES["keccak_f1600"]
