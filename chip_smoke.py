@@ -43,7 +43,32 @@ Phases, each printed on its own line:
      line of its own), msm_tail's and Keccak's chain floors, verify wall
      time and proofs per second, the device's busy share over one profiled
      call;
- 10. one JSON line per contract with every kernel's numbers, then the
+ 10. the sigma and shuffle proofs for phases 10 and 11 from the port's
+     host prover in six worker processes, started only now so that no
+     prover shares the host with a timed call; then the sigma verifiers
+     (accounts/device_verifier.py) at n = 64 and n = 1,024 of phase 5's
+     Accounts: delta-compact and zero-balance proofs, honest proofs
+     accepted, zv + 1 and z + 1 rejected, the device's e/f encodings equal
+     to the host Verifier's recomputation byte for byte (every row at 64,
+     64 sampled rows at 1,024), the kernels launched on the card; wall time
+     of each call;
+ 11. the shuffle verifier at full width: DeviceShuffleVerifier(m=8,
+     batch=16) on 16 distinct proofs over one 64-account anonymity set
+     (phase 10's workers made them): the honest batch verifies; one lane
+     tampered (a point, a Hadamard scalar, the DDH response, a
+     multi-exponentiation commitment, the product statement, swapped
+     accounts) is rejected by the device and by the host verifier;
+     device_batch_verify on 5 proofs runs as a bucket of 8 and verifies;
+     DeviceShuffleVerifier(m=3, batch=16) verifies too. The kernels at the
+     verifier's own shapes against their plain versions (scalar_mul over
+     the B (3m + 3) product lanes, the MSM stages on the [6B, N + 1] rows and
+     on the final check's points, Keccak on the transcript states); times:
+     the median of 7 verifies, one profiled call's busy share and kernel
+     count, each kernel's launches per verify and device time by graph
+     replay, batch_verify_shuffle_proofs by "host", "device" and
+     "device-batched", and DeferredPointChecks "host" against "device" on
+     the same terms, on one proof's terms and on a few-term check;
+ 12. one JSON line per contract with every kernel's numbers, then the
      final status line.
 
 Any failed check raises, and the script exits non-zero. It also exits
@@ -52,6 +77,7 @@ non-zero without a GPU or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -71,6 +97,13 @@ B_CHECK = 256
 N_ACCOUNTS = 1_024
 RANGE_N, RANGE_M, RANGE_BATCH = 64, 16, 64   # the verifier's full width
 N_PROOFS = 4                                  # distinct proofs; the lanes repeat them
+N_WORKERS = 6                                 # host provers in worker processes
+SIGMA_NS = (64, 1_024)                        # config 5's anonymity set; phase 5's Accounts
+SIGMA_SAMPLE = 64                             # rows held against the host at n = 1,024
+SHUFFLE_M, SHUFFLE_B = 8, 16                  # 64-account shuffles, the throughput batch
+SHUFFLE_M_SMALL = 3                           # the reference's 3x3 anonymity set
+FEW_TERMS = 8                                 # a sigma-sized deferred check
+SHUFFLE_KERNELS = ("scalar_mul", "msm_table", "msm_acc", "msm_tail", "keccak_f1600")
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 INT32_LANES_PER_SM = 64     # Hopper SM: 4 partitions x 16 INT32 lanes
 # 32x32->64 limb products of one field multiply and one square
@@ -107,6 +140,41 @@ KERNELS = {
 }
 SLICE1 = ("scalar_mul", "base_mul")
 SLICE2 = ("msm_table", "msm_acc", "msm_tail", "keccak_f1600")
+
+
+def _flip(b: bytes) -> bytes:
+    return bytes([b[0] ^ 1]) + b[1:]
+
+
+#: one-lane tamperings of a shuffle batch (those of the JAX package's
+#: tests/test_device_shuffle_verify.py, and swapped input/output vectors)
+SHUFFLE_TAMPERS = ("c_A point", "hadamard a_bar", "ddh z", "multiexpo E_k_0",
+                   "svp statement b", "swapped accounts")
+
+
+def shuffle_tampered(entries, what: str, lane: int):
+    """entries with one tampering in lane `lane`."""
+    rep = dataclasses.replace
+    out = list(entries)
+    p, s, ins, outs = out[lane]
+    if what == "c_A point":
+        p = rep(p, c_A=[_flip(p.c_A[0])] + p.c_A[1:])
+    elif what == "hadamard a_bar":
+        h = p.hadamard_proof
+        p = rep(p, hadamard_proof=rep(h, a_bar=[h.a_bar[0] + 1] + h.a_bar[1:]))
+    elif what == "ddh z":
+        p = rep(p, ddh_proof=rep(p.ddh_proof, z=p.ddh_proof.z + 1))
+    elif what == "multiexpo E_k_0":
+        me = p.multi_exponen_commit
+        p = rep(p, multi_exponen_commit=rep(me, E_k_0=[_flip(me.E_k_0[0])] + me.E_k_0[1:]))
+    elif what == "svp statement b":
+        ps = s.product_statement
+        s = rep(s, product_statement=rep(ps, svp_statement=rep(ps.svp_statement,
+                                                               b=ps.svp_statement.b + 1)))
+    else:
+        ins, outs = outs, ins
+    out[lane] = (p, s, ins, outs)
+    return out
 
 
 def check(cond, what: str) -> None:
@@ -198,23 +266,91 @@ def prove_and_check(i: int):
     return proof.to_bytes(), commitments
 
 
+def shuffle_proof(accounts, tag: bytes):
+    """Worker process: one shuffle of `accounts` and its proof from the
+    port's host prover, checked by the port's host verifier. Returns
+    (proof, statement, inputs, outputs)."""
+    sys.path.insert(0, REPO)
+    from quisquis_tpu_torch.accounts.prover import Prover
+    from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
+    from quisquis_tpu_torch.accounts.verifier import Verifier
+    from quisquis_tpu_torch.shuffle.shuffle import Shuffle, ShuffleProof
+    rng = SeededRng(seed=tag)
+    shuffle = Shuffle.input_shuffle(accounts, rng=rng)
+    proof, statement = ShuffleProof.create_shuffle_proof(
+        Prover(b"Shuffle", Transcript(b"ShuffleProof"), rng=rng), shuffle, rng=rng)
+    entry = (proof, statement, shuffle.get_inputs_vector(), shuffle.get_outputs_vector())
+    proof.verify(Verifier(b"Shuffle", Transcript(b"ShuffleProof")), *entry[1:])  # raises if wrong
+    return entry
+
+
+def sigma_rows(kind: str, accounts, eps, proof, sample):
+    """The host Verifier's first-message recomputations (the multiscalar
+    rows of verifier.py) of the sampled accounts: (e_delta, f_delta,
+    e_epsilon, f_epsilon) per account for "dleq", (e, f) for "dlog"."""
+    from quisquis_tpu_torch.ops import exact as ex
+    rows = []
+    if kind == "dleq":
+        zv, zr1, zr2, x = proof
+        for i in sample:
+            d, e = accounts[i], eps[i]
+            rows += [([zr1[i], x], [d.pk.gr_point, d.comm.c_point]),
+                     ([zr1[i], x, zv[i]], [d.pk.grsk_point, d.comm.d_point, ex.BASEPOINT]),
+                     ([zr2[i], x], [e.pk.gr_point, e.comm.c_point]),
+                     ([zr2[i], x, zv[i]], [e.pk.grsk_point, e.comm.d_point, ex.BASEPOINT])]
+    else:
+        z, x = proof
+        for i in sample:
+            a = accounts[i]
+            rows += [([z[i], x], [a.pk.gr_point, a.comm.c_point]),
+                     ([z[i], x], [a.pk.grsk_point, a.comm.d_point])]
+    return ex.ristretto_encode_batch(ex.pt_msm_many(rows))
+
+
+def sigma_proof(kind: str, blobs, eps_blobs, rscalars, values, sample):
+    """Worker process: a delta-compact ("dleq") or zero-balance ("dlog")
+    sigma proof over the accounts (wire bytes) from the port's host prover,
+    and the host Verifier's first messages of the sampled accounts.
+    Returns (proof fields, encodings)."""
+    sys.path.insert(0, REPO)
+    from quisquis_tpu_torch.accounts.accounts import Account
+    from quisquis_tpu_torch.accounts.prover import Prover
+    from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
+    accounts = [Account.from_bytes(b) for b in blobs]
+    eps = [Account.from_bytes(b) for b in eps_blobs]
+    rng = SeededRng(seed=b"chip-smoke-sigma-%s-%d" % (kind.encode(), len(blobs)))
+    if kind == "dleq":
+        proof = Prover.verify_delta_compact_prover(
+            accounts, eps, rscalars, values,
+            Prover(b"DLEQProof", Transcript(b"DeltaCompact"), rng=rng)).get_dleq()
+    else:
+        proof = Prover.zero_balance_account_vector_prover(
+            accounts, rscalars, Prover(b"DLOGProof", Transcript(b"ZeroBalance"), rng=rng)
+        ).get_dlog()
+    return proof, sigma_rows(kind, accounts, eps, proof, sample)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
     import quisquis_tpu_torch  # noqa: F401  (fails here, before any process starts, outside a checkout)
-    # the host range prover is pure Python and slow: it runs in worker
-    # processes beside phases 2-7, and phase 8 collects the proofs
-    with ProcessPoolExecutor(N_PROOFS, mp_context=get_context("spawn")) as pool:
+    # the host provers are pure Python and slow: they run in worker
+    # processes, the range proofs beside phases 2-7 (phase 8 collects them),
+    # the sigma and shuffle proofs after phase 9's timed calls
+    with ProcessPoolExecutor(N_WORKERS, mp_context=get_context("spawn")) as pool:
         return phases(pool)
 
 
 def phases(pool) -> int:
+    from quisquis_tpu_torch.accounts import device_verifier as dvf
     from quisquis_tpu_torch.accounts.accounts import Account
+    from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks
     from quisquis_tpu_torch.accounts.device_accounts import (
         create_delta_and_epsilon_accounts_device, update_accounts_device)
-    from quisquis_tpu_torch.accounts.transcript import SeededRng
+    from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
+    from quisquis_tpu_torch.accounts.verifier import Verifier
     from quisquis_tpu_torch.bulletproofs.device_verify import DeviceRangeVerifier
     from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
     from quisquis_tpu_torch.kernel_ab import graph_ms
@@ -229,7 +365,10 @@ def phases(pool) -> int:
     from quisquis_tpu_torch.ops import msm as qmsm
     from quisquis_tpu_torch.ops import point as pt
     from quisquis_tpu_torch.primitives.elgamal import ElGamalCommitment
-    from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey
+    from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey, RistrettoSecretKey
+    from quisquis_tpu_torch.shuffle import device_verify as sdv
+    from quisquis_tpu_torch.shuffle.device_verify import DeviceShuffleVerifier, device_batch_verify
+    from quisquis_tpu_torch.shuffle.shuffle import batch_verify_shuffle_proofs
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -246,6 +385,11 @@ def phases(pool) -> int:
 
     # -- phase 2 --------------------------------------------------------
     proving = [pool.submit(prove_and_check, i) for i in range(N_PROOFS)]
+    srng = SeededRng(seed=b"chip-smoke-shuffle-accounts")
+    shuffle_sets = {}
+    for m_ in (SHUFFLE_M, SHUFFLE_M_SMALL):
+        shuffle_sets[m_] = [Account.generate_account(RistrettoPublicKey.from_secret_key(
+            RistrettoSecretKey.random(srng), srng), srng)[0] for _ in range(m_ * m_)]
     cb.load_library()
     say(2, f"{len(cb.KERNEL_SOURCES)} kernels built or loaded in {cb.build_seconds():.1f} s")
     for line in cb.build_log().splitlines():
@@ -427,6 +571,26 @@ def phases(pool) -> int:
     say(5, f"{m} Accounts from phase 4 wire bytes: update_accounts_device + delta/epsilon "
            f"(launches {acct_launches}), 16 rows byte-identical to host; update_accounts_device "
            f"{upd_s:.3f} s = {m / upd_s:.1f} accounts/s (host clock, host conversions included)")
+    # the sigma phase's inputs from these Accounts: delta/epsilon pairs (phase
+    # 5's own at n = 1,024) and zero-balance accounts (commitments to 0);
+    # the host prover makes the proofs in the worker processes once phase
+    # 9's timed calls are over
+    sigma = {}
+    for n_s in SIGMA_NS:
+        d_s, e_s, r_s, v_s = (delta, eps, rs5, values) if n_s == m else (
+            *create_delta_and_epsilon_accounts_device(
+                accounts[:n_s], values[:n_s], base_pk, SeededRng(seed=b"chip-smoke-sigma-d"),
+                device="cuda"), values[:n_s])
+        z_s, _, rz_s = create_delta_and_epsilon_accounts_device(
+            accounts[:n_s], [0] * n_s, base_pk, SeededRng(seed=b"chip-smoke-sigma-z"),
+            device="cuda")
+        sample = (list(range(n_s)) if n_s <= SIGMA_SAMPLE else
+                  sorted(rng.choice(n_s, size=SIGMA_SAMPLE, replace=False).tolist()))
+        sigma[n_s] = {
+            "dleq": (d_s, e_s, ("dleq", [a.as_bytes() for a in d_s],
+                                [a.as_bytes() for a in e_s], r_s, v_s, sample)),
+            "dlog": (z_s, None, ("dlog", [a.as_bytes() for a in z_s], [], rz_s, None, sample)),
+            "sample": sample}
 
     # -- phase 6: kernels against plain versions at the main path's widths,
     # then times on this card ---------------------------------------------
@@ -452,17 +616,21 @@ def phases(pool) -> int:
                   "base_mul": (64 + 4 * fe.NLIMBS) * 4}
     table_bytes = pt.niels_base_table(dev).numel() * 4
 
+    def bound(ops, nbytes):
+        """(ms, "operations" or "bytes"): ops at the int32 rate or nbytes at
+        the memory rate, whichever takes longer."""
+        t_ops, t_bytes = ops / int32_peak * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
     def record(phase, name, shape, launches, ops, nbytes, what):
         """One kernel's line of the contract's JSON, and its printed line;
         ops at the int32 rate and nbytes at the memory rate give the bound."""
-        t_ops, t_bytes = ops / int32_peak * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+        b_ms, b_by = bound(ops, nbytes)
         results[name] = {
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": launches,
             "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         }
         say(phase, f"{name} {shape}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.2f} ms, "
                    f"bound {results[name]['bound_ms']:.5f} ms ({results[name]['bound_by']}: "
@@ -677,7 +845,347 @@ def phases(pool) -> int:
     say(9, profile_line(lambda: drv.verify(proofs, commitments, rng=wrng), card,
                         "DeviceRangeVerifier.verify", SLICE2))
 
-    # -- phase 10 -----------------------------------------------------------
+    # -- phase 10: the sigma verifiers ---------------------------------------
+    # the sigma and shuffle proofs are made only now, so that no prover
+    # shares the host with phases 6 and 9's timed calls, nor with the
+    # timed calls of phases 10 and 11: this waits for all of them
+    t0 = time.perf_counter()
+    jobs = {(n_s, k): pool.submit(sigma_proof, *sigma[n_s][k][2])
+            for n_s in SIGMA_NS for k in ("dleq", "dlog")}
+    shuffling = {m_: [pool.submit(shuffle_proof, shuffle_sets[m_], b"chip-smoke-shuffle-%d-%d"
+                                  % (m_, i)) for i in range(SHUFFLE_B)]
+                 for m_ in (SHUFFLE_M, SHUFFLE_M_SMALL)}
+    proved_sigma = {key: f.result(timeout=900) for key, f in jobs.items()}
+    entries = [f.result(timeout=900) for f in shuffling[SHUFFLE_M]]
+    entries3 = [f.result(timeout=900) for f in shuffling[SHUFFLE_M_SMALL]]
+    say(10, f"sigma proofs at n={SIGMA_NS} and {SHUFFLE_B} shuffle proofs at m={SHUFFLE_M} and "
+            f"{SHUFFLE_B} at m={SHUFFLE_M_SMALL} from the port's host prover, each shuffle "
+            f"proof accepted by the host verifier ({N_WORKERS} worker processes, started after "
+            f"phase 9's timed calls; {time.perf_counter() - t0:.1f} s)")
+    for n_s in SIGMA_NS:
+        case = sigma[n_s]
+        d_s, e_s, _ = case["dleq"]
+        (zv, zr1, zr2, x), host_enc = proved_sigma[n_s, "dleq"]
+        z_acc, _, _ = case["dlog"]
+        (z, xz), host_zenc = proved_sigma[n_s, "dlog"]
+        walls = {}
+
+        def run_sigma(what, fn, *args):
+            """One call on the card: (accepted?, launches, wall s by host clock)."""
+            cb.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                fn(*args, device="cuda")
+                ok = True
+            except ValueError:
+                ok = False
+            walls[what] = time.perf_counter() - t
+            return ok, {k: v for k, v in cb.LAUNCHES.items() if v}
+
+        ok_d, l_d = run_sigma("delta-compact", dvf.verify_delta_compact_verifier_device, d_s, e_s,
+                              zv, zr1, zr2, x, Verifier(b"DLEQProof", Transcript(b"DeltaCompact")))
+        bad_zv = [(zv[0] + 1) % ex.L] + list(zv[1:])
+        bad_d, _ = run_sigma("delta-compact, zv + 1", dvf.verify_delta_compact_verifier_device,
+                             d_s, e_s, bad_zv, zr1, zr2, x,
+                             Verifier(b"DLEQProof", Transcript(b"DeltaCompact")))
+        ok_z, l_z = run_sigma("zero-balance", dvf.zero_balance_account_vector_verifier_device,
+                              z_acc, z, xz, Verifier(b"DLOGProof", Transcript(b"ZeroBalance")))
+        bad_z, _ = run_sigma("zero-balance, z + 1", dvf.zero_balance_account_vector_verifier_device,
+                             z_acc, [(z[0] + 1) % ex.L] + list(z[1:]), xz,
+                             Verifier(b"DLOGProof", Transcript(b"ZeroBalance")))
+        check(ok_d and ok_z, f"n={n_s}: honest sigma proofs accepted")
+        check(not bad_d and not bad_z, f"n={n_s}: zv + 1 and z + 1 rejected")
+        check(l_d == {"scalar_mul": 1, "base_mul": 1}, f"delta-compact launches {l_d}")
+        check(l_z == {"scalar_mul": 1}, f"zero-balance launches {l_z}")
+        rows = case["sample"]
+        seen = {}
+        real_sm, real_bm = kp.scalar_mul, kp.base_mul
+
+        def keep_sm(nib, p_):
+            seen["scalar_mul"] = (nib, p_)
+            return real_sm(nib, p_)
+
+        def keep_bm(nib):
+            seen["base_mul"] = nib
+            return real_bm(nib)
+
+        kp.scalar_mul, kp.base_mul = keep_sm, keep_bm  # to see the kernels' inputs
+        try:
+            enc = dvf.delta_compact_encodings(d_s, e_s, zv, zr1, zr2, x, device="cuda")
+        finally:
+            kp.scalar_mul, kp.base_mul = real_sm, real_bm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        zenc = dvf.zero_balance_encodings(z_acc, z, xz, device="cuda")
+        zenc_s = time.perf_counter() - t
+        t = time.perf_counter()
+        dvf.delta_compact_encodings(d_s, e_s, zv, zr1, zr2, x, device="cuda")
+        enc_s = time.perf_counter() - t
+        check([bytes(r) for r in enc[rows].reshape(-1, 32)] == host_enc,
+              f"n={n_s}: delta-compact e/f == host Verifier, byte for byte")
+        check([bytes(r) for r in zenc[rows].reshape(-1, 32)] == host_zenc,
+              f"n={n_s}: zero-balance e/f == host Verifier, byte for byte")
+        nib_s, pts_s = seen["scalar_mul"]
+        same(kp.scalar_mul(nib_s, pts_s), pt.scalar_mul(nib_s, pts_s), "scalar_mul",
+             f"the sigma verifier's {nib_s.shape[0]} lanes")
+        same(kp.base_mul(seen["base_mul"]), pt.base_mul(seen["base_mul"]), "base_mul",
+             f"the sigma verifier's {n_s} lanes")
+        say(10, f"sigma verifiers at n={n_s} on the card: honest delta-compact and zero-balance "
+                f"proofs accepted (launches {l_d}, {l_z}), zv + 1 and z + 1 rejected; e/f "
+                f"encodings of {len(rows)} accounts == host Verifier byte for byte; scalar_mul "
+                f"({nib_s.shape[0]} lanes) and base_mul ({n_s}) == plain limb for limb; wall "
+                f"time by host clock: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                                     for k, v in walls.items())
+                + f"; of a call, the device encodings alone (upload, decode, products, "
+                f"compress, fetch): delta-compact {enc_s * 1e3:.1f} ms, zero-balance "
+                f"{zenc_s * 1e3:.1f} ms, the rest is the host transcript [{card}]")
+
+    # -- phase 11: the shuffle verifier at full width ------------------------
+    m8, b8 = SHUFFLE_M, SHUFFLE_B
+    check(len({bytes(e[0].c_A[0]) for e in entries}) == b8, "16 distinct proofs")
+    dsv = DeviceShuffleVerifier(m8, b8)
+    t0 = time.perf_counter()
+    dsv.warmup()
+    warm_s = time.perf_counter() - t0
+    srng_w = SeededRng(seed=b"chip-smoke-shuffle-weights")
+    cb.reset_launches()
+    dsv.verify(entries, rng=srng_w)  # raises unless the batch verifies
+    sh_launches = {k: v for k, v in cb.LAUNCHES.items() if v}
+    check(set(sh_launches) == set(SHUFFLE_KERNELS), f"shuffle verify launches {sh_launches}")
+    check(sh_launches["scalar_mul"] == 1 and all(sh_launches[k] == 2 for k in
+                                                 ("msm_table", "msm_acc", "msm_tail")),
+          f"one scalar_mul, one rows MSM and one final MSM per verify: {sh_launches}")
+    rejected = []
+    for lane, what in enumerate(SHUFFLE_TAMPERS, start=3):
+        bad = shuffle_tampered(entries, what, lane)
+        try:
+            bad[lane][0].verify(Verifier(b"Shuffle", Transcript(b"ShuffleProof")), *bad[lane][1:])
+            host_ok = True
+        except ValueError:
+            host_ok = False
+        check(not host_ok, f"host verifier rejects {what}")
+        try:
+            dsv.verify(bad, rng=srng_w)
+        except ValueError:
+            rejected.append(what)
+            continue
+        raise RuntimeError(f"check failed: batch with {what} in lane {lane} was accepted")
+    sdv._VERIFIER_CACHE.clear()
+    device_batch_verify(entries[:5], rng=srng_w)
+    check([k[:2] for k in sdv._VERIFIER_CACHE] == [(m8, 8)], "5 proofs ran as a bucket of 8")
+    dsv3 = DeviceShuffleVerifier(SHUFFLE_M_SMALL, b8)
+    dsv3.warmup()
+    t0 = time.perf_counter()
+    dsv3.verify(entries3, rng=srng_w)
+    m3_s = time.perf_counter() - t0
+    say(11, f"DeviceShuffleVerifier(m={m8}, batch={b8}): honest batch accepted (launches "
+            f"{sh_launches}); one lane with {', '.join(rejected)} rejected each time, and by the "
+            f"host verifier; device_batch_verify on 5 proofs ran as a bucket of 8 and accepted; "
+            f"DeviceShuffleVerifier(m={SHUFFLE_M_SMALL}, batch={b8}) accepted in "
+            f"{m3_s * 1e3:.1f} ms; warmup (first call, zero inputs) {warm_s:.2f} s [{card}]")
+
+    # the kernels at the verifier's own shapes: one more verify records their inputs
+    seen = {"keccak": []}
+    real_sm, real_rows, real_msm, real_f1600 = kp.scalar_mul, qmsm.msm_rows, qmsm.msm, kk.f1600
+
+    def keep_sm(nib, p_):
+        seen["scalar_mul"] = (nib, p_)
+        return real_sm(nib, p_)
+
+    def keep_rows(nib, p_):
+        seen["rows"] = (nib, p_)
+        return real_rows(nib, p_)
+
+    def keep_msm(nib, p_):
+        seen["msm"] = (nib, p_)
+        return real_msm(nib, p_)
+
+    def keep_f1600(state):
+        seen["keccak"].append(state)
+        return real_f1600(state)
+
+    kp.scalar_mul, qmsm.msm_rows, qmsm.msm, kk.f1600 = keep_sm, keep_rows, keep_msm, keep_f1600
+    try:
+        dsv.verify(entries, rng=srng_w)
+    finally:
+        kp.scalar_mul, qmsm.msm_rows, qmsm.msm, kk.f1600 = real_sm, real_rows, real_msm, real_f1600
+    nib_p, pts_p = seen["scalar_mul"]
+    lanes_p = nib_p.shape[0]
+    check(lanes_p == b8 * (3 * m8 + 3), f"{lanes_p} product lanes")
+    same(kp.scalar_mul(nib_p, pts_p), pt.scalar_mul(nib_p, pts_p), "scalar_mul",
+         f"the shuffle verifier's {lanes_p} product lanes")
+    nib_r, pts_r = seen["rows"]
+    check(tuple(nib_r.shape) == (6 * b8, m8 * m8 + 1, 64), f"rows MSM {tuple(nib_r.shape)}")
+    stages_against_plain(nib_r, pts_r, f"the shuffle verifier's {6 * b8} rows of {m8 * m8 + 1}")
+    nib_f, pts_f = seen["msm"]
+    n_final = nib_f.shape[0]
+    final = stages_against_plain(nib_f[None], pt.ExtPoint(*(c[None] for c in pts_f)),
+                                 f"the shuffle verifier's final MSM of {n_final} points")
+    check(bool(pt.is_identity(pt.ExtPoint(*(c[0] for c in final)))),
+          "the honest batch's final MSM is the identity")
+    states_k = seen["keccak"]
+    for st in states_k:
+        check(torch.equal(kk.f1600(st), dk.f1600_plain(st)),
+              "keccak_f1600 == plain on a shuffle transcript state")
+    check({tuple(st.shape) for st in states_k} == {(b8, 200)}, "transcript states [16, 200]")
+    say(11, f"kernels == plain versions at the shuffle verifier's shapes: scalar_mul over "
+            f"{lanes_p} lanes, msm_table / msm_acc / msm_tail on {6 * b8} rows of "
+            f"{m8 * m8 + 1} points and on the final MSM's {n_final} points, keccak_f1600 on "
+            f"{len(states_k)} transcript states of [{b8}, 200]; max_abs_err "
+            f"{ {k: err[k] for k in SHUFFLE_KERNELS} }")
+
+    # each kernel's device time at these shapes, by replaying a CUDA graph of
+    # back-to-back launches of its C entry point (msm_tail with its scratch
+    # zeroed in the graph, as its wrapper does), its plain version's time
+    # (CUDA events over one call) and its bound for the points these shapes
+    # hold (row padding excluded)
+    def ptrs(p_):
+        return [c.data_ptr() for c in p_]
+
+    def empty_pt(shape):
+        return pt.ExtPoint(*(torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(4)))
+
+    def graph_stage_ms(name, *args):
+        return graph_ms(direct(getattr(lib, cb.KERNELS[name][1]), *args))
+
+    sh_rows = []  # (kernel, shape, launches a verify, ms, plain ms, bound ms, bound by)
+
+    def shape_line(name, shape, launches, k_ms, p_ms, ops, nbytes):
+        sh_rows.append((name, shape, launches, k_ms, p_ms) + bound(ops, nbytes))
+
+    out_p = empty_pt((lanes_p, fe.NLIMBS))
+    shape_line("scalar_mul", f"{lanes_p} lanes", 1,
+               graph_stage_ms("scalar_mul", nib_p.data_ptr(), *ptrs(pts_p), *ptrs(out_p),
+                              lanes_p),
+               time_once(lambda: pt.scalar_mul(nib_p, pts_p))[1],
+               lanes_p * sum(FIELD_OPS["scalar_mul"][k] * PRODUCTS[k] for k in PRODUCTS),
+               lanes_p * lane_bytes["scalar_mul"])
+    for key, nib_k, pts_k in (("rows", nib_r, pts_r),
+                              ("final", nib_f[None], pt.ExtPoint(*(c[None] for c in pts_f)))):
+        rows_k, real_k = nib_k.shape[0], nib_k.shape[0] * nib_k.shape[1]
+        digits_k, flat_k = kp.pad_rows(nib_k, pts_k)
+        n_k = flat_k.x.shape[0]
+        shape_k = f"{key}: {rows_k} x {nib_k.shape[1]} points ({n_k} padded)"
+        table_k = empty_pt((16, fe.NLIMBS, n_k))
+        sums_k = empty_pt((rows_k, 64, fe.NLIMBS, qmsm.MSM_LANES))
+        sums_b = rows_k * 64 * 4 * fe.NLIMBS * qmsm.MSM_LANES * 4
+        shape_line("msm_table", shape_k, 1,
+                   graph_stage_ms("msm_table", *ptrs(flat_k), *ptrs(table_k), n_k),
+                   time_once(lambda: qmsm.msm_table(flat_k))[1],
+                   real_k * MSM_PRODUCTS["table_point"], real_k * 17 * point_bytes)
+        shape_line("msm_acc", shape_k, 1,
+                   graph_stage_ms("msm_acc", digits_k.data_ptr(), *ptrs(table_k), *ptrs(sums_k),
+                                  rows_k, n_k // (rows_k * qmsm.MSM_LANES), qmsm.MSM_LANES),
+                   time_once(lambda: qmsm.msm_window_sums(digits_k, table_k, rows_k))[1],
+                   real_k * 64 * MSM_PRODUCTS["add"],
+                   real_k * (64 * 4 + 16 * point_bytes) + sums_b)
+        out_k = empty_pt((rows_k, fe.NLIMBS))
+        totals_k = torch.empty((rows_k, 64, 4, fe.NLIMBS), dtype=torch.int32, device=dev)
+
+        def tail(sums_=sums_k, totals_=totals_k, out_=out_k, rows_=rows_k):
+            done = torch.zeros((rows_,), dtype=torch.int32, device=dev)
+            check(lib.qq_msm_tail(*ptrs(sums_), totals_.data_ptr(), done.data_ptr(),
+                                  *ptrs(out_), rows_, qmsm.MSM_LANES,
+                                  torch.cuda.current_stream().cuda_stream) == 0, "direct launch")
+
+        shape_line("msm_tail", shape_k, 1, graph_ms(tail),
+                   time_once(lambda: qmsm.msm_tail(sums_k))[1],
+                   rows_k * MSM_PRODUCTS["tail_row"], sums_b + rows_k * point_bytes)
+    state_k = states_k[0]
+    out_k = torch.empty_like(state_k)
+    shape_line("keccak_f1600", f"{b8} states", sh_launches["keccak_f1600"],
+               graph_stage_ms("keccak_f1600", state_k.data_ptr(), out_k.data_ptr(), b8),
+               time_once(lambda: dk.f1600_plain(state_k))[1],
+               b8 * KECCAK_OPS_PER_STATE, b8 * 400)
+    for name, shape, n_l, k_ms, p_ms, b_ms, b_by in sh_rows:
+        say(11, f"{name} at the shuffle verifier's {shape}: {n_l} launch(es) a verify; device "
+                f"time by graph replay {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}) [{card}]")
+    per_verify = sum(n_l * k_ms for _, _, n_l, k_ms, _, _, _ in sh_rows)
+    say(11, f"the kernels' device time a shuffle verify: {per_verify:.3f} ms (launches "
+            f"{sh_launches}) [{card}]")
+
+    def timed_shuffle():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dsv.verify(entries, rng=srng_w)  # ends by fetching the verdict
+        return time.perf_counter() - t
+
+    walls = sorted(timed_shuffle() for _ in range(7))
+    wall = statistics.median(walls)
+    t = time.perf_counter()
+    packed = dsv._pack(entries, None)
+    pack_s = time.perf_counter() - t
+    weights_sh = np.frombuffer(srng_w.fill_bytes(b8 * dsv.NCHECKS * 64), np.uint8).reshape(
+        b8, dsv.NCHECKS, 64).copy()
+    t = time.perf_counter()
+    check(dsv._run(packed[0], packed[1], weights_sh, *packed[2:]), "packed batch verifies")
+    run_s = time.perf_counter() - t
+    say(11, f"DeviceShuffleVerifier.verify of {b8} proofs (m={m8}, N={m8 * m8}), host clock, 7 "
+            f"calls: median {wall * 1e3:.1f} ms (min {walls[0] * 1e3:.1f}, max "
+            f"{walls[-1] * 1e3:.1f}) = {b8 / wall:.1f} shuffle-proof verifications/s; one call "
+            f"split: host packing {pack_s * 1e3:.1f} ms, program from upload to verdict "
+            f"{run_s * 1e3:.1f} ms [{card}]")
+    say(11, profile_line(lambda: dsv.verify(entries, rng=srng_w), card,
+                         "DeviceShuffleVerifier.verify", SHUFFLE_KERNELS))
+
+    def wrapped():
+        return [(p_, Verifier(b"Shuffle", Transcript(b"ShuffleProof")), st, ins, outs)
+                for p_, st, ins, outs in entries]
+
+    backend_s = {}
+    for backend in ("device-batched", "host", "device"):
+        w = wrapped()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch_verify_shuffle_proofs(w, backend=backend, seed=b"chip-smoke-batch")
+        backend_s[backend] = time.perf_counter() - t
+    deferred = DeferredPointChecks(b"chip-smoke-deferred")
+    t = time.perf_counter()
+    for p_, v, st, ins, outs in wrapped():
+        p_.verify(v, st, ins, outs, defer=deferred)
+    replay_s = time.perf_counter() - t
+    defer_s = {}
+    for backend in ("host", "device", "device", "host"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        deferred.verify(backend=backend)  # raises unless the combined check holds
+        defer_s.setdefault(backend, []).append(time.perf_counter() - t)
+    one = DeferredPointChecks(b"chip-smoke-deferred-1")
+    p_, v, st, ins, outs = wrapped()[0]
+    p_.verify(v, st, ins, outs, defer=one)
+    for backend in ("host", "device", "device", "host"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one.verify(backend=backend)
+        defer_s.setdefault(f"{backend} 1", []).append(time.perf_counter() - t)
+    # a few-term accumulator, the size a sigma or transaction check defers:
+    # FEW_TERMS - 1 random multiples of B and the term that cancels them
+    few = DeferredPointChecks(b"chip-smoke-deferred-few")
+    ks = [int.from_bytes(srng_w.fill_bytes(32), "little") % ex.L for _ in range(FEW_TERMS - 1)]
+    ws = [int.from_bytes(srng_w.fill_bytes(32), "little") % ex.L for _ in range(FEW_TERMS - 1)]
+    few.check(ws + [(-sum(w_ * k_ for w_, k_ in zip(ws, ks))) % ex.L],
+              [ex.pt_base_mul(k_) for k_ in ks] + [ex.BASEPOINT], "few-term check")
+    for backend in ("host", "device", "device", "host"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        few.verify(backend=backend)
+        defer_s.setdefault(f"{backend} few", []).append(time.perf_counter() - t)
+    say(11, f"batch_verify_shuffle_proofs on the same {b8} proofs, host clock: "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in backend_s.items())
+            + f"; DeferredPointChecks on their {deferred.num_terms} coalesced terms (host "
+            f"replay {replay_s * 1e3:.1f} ms): verify host "
+            + " / ".join(f"{v * 1e3:.1f}" for v in defer_s["host"]) + " ms, device "
+            + " / ".join(f"{v * 1e3:.1f}" for v in defer_s["device"]) + f" ms; on one "
+            f"proof's {one.num_terms} terms: host "
+            + " / ".join(f"{v * 1e3:.1f}" for v in defer_s["host 1"]) + " ms, device "
+            + " / ".join(f"{v * 1e3:.1f}" for v in defer_s["device 1"]) + f" ms; on "
+            f"{few.num_terms} terms: host "
+            + " / ".join(f"{v * 1e3:.2f}" for v in defer_s["host few"]) + " ms, device "
+            + " / ".join(f"{v * 1e3:.2f}" for v in defer_s["device few"]) + f" ms [{card}]")
+
+    # -- phase 12 -----------------------------------------------------------
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -8,9 +8,15 @@ Laid out like the JAX package it is ported from:
                 (cuda_build), batched commitments, and its own copy of the
                 exact host backend, Keccak and STROBE
   primitives/   keys, ElGamal commitments and Pedersen generators (host objects)
-  accounts/     Account, Merlin transcripts, device-batched account updates
+  accounts/     Account, Merlin transcripts, device-batched account updates,
+                host sigma prover and verifier, the device sigma verifiers
+                (device_verifier), deferred point checks (deferred)
   bulletproofs/ host range prover and verifier; the device-batched range
                 verifier (device_verify)
+  shuffle/      host shuffle prover and verifier; the device-batched shuffle
+                verifier (device_verify)
+  utils/        metrics and timers
+  config.py     protocol settings (anonymity-set size, range bits)
   csrc/         the CUDA C++ sources, built with nvcc at first use
 
 It imports torch and numpy, never jax, and nothing of quisquis_tpu. Public

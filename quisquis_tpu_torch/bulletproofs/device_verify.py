@@ -42,6 +42,19 @@ from ..primitives.pedersen import default_pedersen_gens
 from .generators import bulletproof_gens
 
 
+def _sf_tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum mod l along axis -2 (log depth, fixed order)."""
+    n = x.shape[-2]
+    while n > 1:
+        if n % 2:
+            x = torch.cat([x, sf.zeros(x.shape[:-2] + (1,), x.device)], dim=-2)
+            n += 1
+        h = n // 2
+        x = sf.add(x[..., :h, :], x[..., h:, :])
+        n = h
+    return x[..., 0, :]
+
+
 def _sf_tree_prod(x: torch.Tensor) -> torch.Tensor:
     """Product mod l along axis -2 (log depth, fixed order)."""
     n = x.shape[-2]
@@ -53,6 +66,11 @@ def _sf_tree_prod(x: torch.Tensor) -> torch.Tensor:
         x = sf.mul(x[..., :h, :], x[..., h:, :])
         n = h
     return x[..., 0, :]
+
+
+def _ext_concat(points, dim: int = 0) -> pt.ExtPoint:
+    """Concatenate point batches along ``dim``."""
+    return pt.ExtPoint(*(torch.cat(cs, dim=dim) for cs in zip(*points)))
 
 
 class DeviceRangeVerifier:

@@ -257,32 +257,133 @@ class RangeProof:
     @staticmethod
     def batch_verify(instances: Sequence[Tuple["RangeProof", Sequence[bytes],
                                                Transcript]],
-                     n: int, rng: Optional[SeededRng] = None,
+                     n: int, rng: Optional[SeededRng] = None, defer=None,
                      backend: str = "device-batched", device="cuda") -> None:
-        """Batch verification across many independent proofs: every proof's
-        two checks are folded, with per-equation random weights, into one
-        multiscalar multiplication.
+        """Batch verification across many independent proofs (the crate's
+        `yoloproofs` behavior): every proof's two checks are folded, with
+        per-equation random weights, into ONE multiscalar multiplication
+        whose shared generator scalars accumulate across proofs.
 
         instances: [(proof, value_commitments, transcript), ...]; each
         transcript must be in the state the corresponding single
         verification would start from. Raises ValueError if the combined
         check fails (at least one proof in the batch is invalid).
 
-        backend "device-batched" hands the whole batch to the device
-        verifier (bulletproofs.device_verify): transcripts, challenge
-        arithmetic and the MSM all run on ``device``. The JAX package's
-        "host" backend replays the transcripts on the host and evaluates one
-        MSM through accounts/deferred.py, which is not ported yet.
-        """
-        if backend == "host":
-            raise NotImplementedError(
-                "batch_verify backend 'host' needs the deferred accumulator "
-                "(accounts/deferred.py), which is not ported yet")
-        if backend != "device-batched":
-            raise ValueError(f"unknown backend {backend!r}")
-        from .device_verify import device_batch_verify
+        backend:
+          - "device-batched": hand the whole batch to the device verifier
+            (bulletproofs.device_verify): transcripts, challenge arithmetic
+            and the MSM all run on ``device``.
+          - "host": replay the transcripts here and evaluate one MSM through
+            the deferred accumulator (accounts.deferred), on the host.
+          - "auto": "device-batched" without `defer`, "host" with it.
 
-        device_batch_verify(instances, n, rng=rng, device=device)
+        With `defer` (accounts.deferred.DeferredPointChecks), the combined
+        terms join an even larger cross-protocol batch instead of being
+        evaluated here; per-equation weights then come from the accumulator,
+        and the accumulator's owner chooses where its MSM runs.
+        """
+        from ..accounts.deferred import DeferredPointChecks
+
+        if backend not in ("auto", "host", "device-batched"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if backend == "auto":
+            backend = "host" if defer is not None else "device-batched"
+        if backend == "device-batched":
+            if defer is not None:
+                raise ValueError(
+                    "device-batched backend evaluates its own MSM; "
+                    "it cannot feed a deferred accumulator")
+            from .device_verify import device_batch_verify
+
+            device_batch_verify(instances, n, rng=rng, device=device)
+            return
+
+        own = defer is None
+        if own:
+            seed = None if rng is None else ex.sc_to_bytes(rng.random_scalar())
+            defer = DeferredPointChecks(seed)
+        pc = default_pedersen_gens()
+        max_m = max((len(V) for _, V, _ in instances), default=1)
+        bp = bulletproof_gens(n, max_m)
+        G = bp.G(n, max_m)
+        H = bp.H(n, max_m)
+
+        for proof, value_commitments, transcript in instances:
+            m = len(value_commitments)
+            if m & (m - 1):
+                raise ValueError("Bulletproof batch verification failed: "
+                                 "the number of values is not a power of two")
+            nm = n * m
+            transcript.append_message(b"dom-sep", b"rangeproof v1")
+            transcript.append_u64(b"n", n)
+            transcript.append_u64(b"m", m)
+            for vb in value_commitments:
+                transcript.append_message(b"V", vb)
+            transcript.append_message(b"A", proof.A)
+            transcript.append_message(b"S", proof.S)
+            y = transcript.get_challenge(b"y")
+            z = transcript.get_challenge(b"z")
+            transcript.append_message(b"T_1", proof.T_1)
+            transcript.append_message(b"T_2", proof.T_2)
+            x = transcript.get_challenge(b"x")
+            transcript.append_scalar_var(b"t_x", proof.t_x)
+            transcript.append_scalar_var(b"t_x_blinding", proof.t_x_blinding)
+            transcript.append_scalar_var(b"e_blinding", proof.e_blinding)
+            w = transcript.get_challenge(b"w")
+            u_sq, u_inv_sq, s = proof.ipp_proof.verification_scalars(
+                nm, transcript)
+
+            V_pts = [ex.ristretto_decode(vb) for vb in value_commitments]
+            A_pt = ex.ristretto_decode(proof.A)
+            S_pt = ex.ristretto_decode(proof.S)
+            T1_pt = ex.ristretto_decode(proof.T_1)
+            T2_pt = ex.ristretto_decode(proof.T_2)
+            L_pts = [ex.ristretto_decode(b_) for b_ in proof.ipp_proof.L_vec]
+            R_pts = [ex.ristretto_decode(b_) for b_ in proof.ipp_proof.R_vec]
+            if any(p is None for p in
+                   V_pts + [A_pt, S_pt, T1_pt, T2_pt] + L_pts + R_pts):
+                raise ValueError("Bulletproof batch verification failed: "
+                                 "bad point")
+
+            z2 = z * z % L
+            # check 1:
+            #   t_x B + t_x_blinding B~ - sum z^2 z^j V_j - delta B
+            #   - x T1 - x^2 T2 == 0
+            defer.check(
+                [(proof.t_x - _delta(n, m, y, z)) % L, proof.t_x_blinding]
+                + [(-z2) * pow(z, j, L) % L for j in range(m)]
+                + [(-x) % L, (-x) * x % L],
+                [pc.B, pc.B_blinding] + V_pts + [T1_pt, T2_pt],
+                "Bulletproof batch verification failed")
+
+            # check 2 + IPP:
+            #   A + x S - e_b B~ + w(t_x - a b) B + sum(-z - a s_i) G_i
+            #   + sum(h_i - b s_inv_i Hf_i) H_i + sum(u^2 L + u^-2 R) == 0
+            a, b = proof.ipp_proof.a, proof.ipp_proof.b
+            y_nm = _powers(y, nm)
+            y_inv = ex.sc_invert(y)
+            H_factors = _powers(y_inv, nm)
+            zeta = [z2 * pow(z, j, L) % L * pow(2, k, L) % L
+                    for j in range(m) for k in range(n)]
+            h_scalars = [(z * y_nm[i] + zeta[i]) % L * H_factors[i] % L
+                         for i in range(nm)]
+            s_inv = s[::-1]
+            scalars = [w * (proof.t_x - a * b) % L,
+                       (-proof.e_blinding) % L, 1, x]
+            points = [pc.B, pc.B_blinding, A_pt, S_pt]
+            scalars.extend((-z - a * s[i]) % L for i in range(nm))
+            points.extend(G[:nm])
+            scalars.extend((h_scalars[i] - b * s_inv[i] % L * H_factors[i]) % L
+                           for i in range(nm))
+            points.extend(H[:nm])
+            for k in range(len(L_pts)):
+                scalars.extend([u_sq[k], u_inv_sq[k]])
+                points.extend([L_pts[k], R_pts[k]])
+            defer.check(scalars, points,
+                        "Bulletproof batch verification failed")
+
+        if own:
+            defer.verify(backend="host")
 
     def advance_transcript(self, transcript: Transcript,
                            value_commitments: Sequence[bytes],
@@ -339,3 +440,16 @@ class RangeProof:
         e_b = ex.sc_from_bytes_mod_order(data[192:224])
         ipp = InnerProductProof.from_bytes(data[224:])
         return cls(A, S, T1, T2, t_x, t_x_b, e_b, ipp)
+
+
+# observability: wall-clock per proof op + proof sizes (bytes)
+from ..utils.metrics import instrument as _instrument  # noqa: E402
+
+RangeProof.prove_multiple = staticmethod(
+    _instrument("rangeproof.prove", "rangeproof.bytes",
+                lambda out: len(out[0].to_bytes()))(
+        RangeProof.prove_multiple))
+RangeProof.verify_multiple = _instrument("rangeproof.verify")(
+    RangeProof.verify_multiple)
+RangeProof.batch_verify = staticmethod(
+    _instrument("rangeproof.batch_verify")(RangeProof.batch_verify))

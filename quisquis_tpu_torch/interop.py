@@ -9,10 +9,15 @@ imports no JAX.
 
 The range verifier has no learned state; what it keeps between calls is its
 static generator points (``DeviceRangeVerifier._static``), which
-:func:`ext_point_from_jax` carries across like any other point batch.
+:func:`ext_point_from_jax` carries across like any other point batch. The
+verifiers' inputs are host objects (accounts, sigma, range and shuffle
+proofs and statements): :func:`host_object_from_jax` rebuilds them.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -107,3 +112,45 @@ def keccak_states_from_jax(states: np.ndarray, device="cuda") -> torch.Tensor:
 def keccak_states_to_jax(states: torch.Tensor) -> np.ndarray:
     """The port's uint8 states [..., 200] -> int32 byte values for JAX."""
     return states.cpu().numpy().astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _host_classes() -> dict:
+    """The port's host dataclasses by class name."""
+    from .accounts import prover
+    from .bulletproofs import inner_product, range_proof
+    from .shuffle import ddh, hadamard, multiexponential, product, shuffle, singlevalueproduct
+
+    mods = (prover, inner_product, range_proof, ddh, hadamard, multiexponential, product,
+            shuffle, singlevalueproduct)
+    return {name: cls for mod in mods for name, cls in vars(mod).items()
+            if isinstance(cls, type) and dataclasses.is_dataclass(cls)}
+
+
+def host_object_from_jax(obj):
+    """A host object of the JAX package (a proof, a statement, an account,
+    lists and tuples of them) -> the same object built from the port's
+    classes: dataclasses field by field, by class name; accounts, keys and
+    commitments by their bytes; ints and bytes as they are. Reads only the
+    object's attributes, so nothing of the JAX package is imported."""
+    from .accounts.accounts import Account
+    from .primitives.elgamal import ElGamalCommitment
+    from .primitives.keys import RistrettoPublicKey
+
+    if isinstance(obj, (int, bytes, str)) or obj is None:
+        return obj
+    if isinstance(obj, list):
+        return [host_object_from_jax(o) for o in obj]
+    if isinstance(obj, tuple):
+        return tuple(host_object_from_jax(o) for o in obj)
+    name = type(obj).__name__
+    by_bytes = {"Account": Account, "RistrettoPublicKey": RistrettoPublicKey}
+    if name in by_bytes:
+        return by_bytes[name].from_bytes(obj.as_bytes())
+    if name == "ElGamalCommitment":
+        return ElGamalCommitment.from_bytes(obj.to_bytes())
+    cls = _host_classes().get(name)
+    if cls is None or not dataclasses.is_dataclass(obj):
+        raise TypeError(f"no port counterpart for {name}")
+    return cls(**{f.name: host_object_from_jax(getattr(obj, f.name))
+                  for f in dataclasses.fields(cls)})

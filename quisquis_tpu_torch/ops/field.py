@@ -321,6 +321,11 @@ def cabs(a: torch.Tensor) -> torch.Tensor:
 def to_bytes(x: torch.Tensor) -> np.ndarray:
     """Canonical little-endian encodings [..., 32] uint8; packed on x's
     device so only the wire bytes cross to the host."""
+    return to_bytes_tensor(x).cpu().numpy()
+
+
+def to_bytes_tensor(x: torch.Tensor) -> torch.Tensor:
+    """Canonical little-endian encodings, uint8 [..., 32] on x's device."""
     c = canonicalize(x).long()
     cols = []
     for j in range(32):
@@ -331,7 +336,7 @@ def to_bytes(x: torch.Tensor) -> np.ndarray:
         if off + 8 > BITS[lim] and lim + 1 < NLIMBS:
             v = v | (c[..., lim + 1] << (BITS[lim] - off))
         cols.append(v & 0xFF)
-    return torch.stack(cols, dim=-1).to(torch.uint8).cpu().numpy()
+    return torch.stack(cols, dim=-1).to(torch.uint8)
 
 
 def from_bytes(b, device="cuda") -> torch.Tensor:

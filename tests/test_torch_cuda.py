@@ -135,3 +135,120 @@ def test_keccak_equals_plain(dev, n):
         kk.f1600(st.int())
     with pytest.raises(ValueError):
         kk.f1600(st[:, :100])
+
+
+def _port_shuffles(tag: bytes, m: int, count: int):
+    """(proof, statement, inputs, outputs) per proof from the port's host
+    prover (no JAX on a GPU machine)."""
+    from quisquis_tpu_torch.accounts.accounts import Account
+    from quisquis_tpu_torch.accounts.prover import Prover
+    from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
+    from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey, RistrettoSecretKey
+    from quisquis_tpu_torch.shuffle.shuffle import Shuffle, ShuffleProof
+    rng = SeededRng(seed=tag)
+    accounts = [Account.generate_account(
+        RistrettoPublicKey.from_secret_key(RistrettoSecretKey.random(rng), rng), rng)[0]
+        for _ in range(m * m)]
+    out = []
+    for _ in range(count):
+        sh = Shuffle.input_shuffle(accounts, rng=rng)
+        proof, st = ShuffleProof.create_shuffle_proof(
+            Prover(b"Shuffle", Transcript(b"ShuffleProof"), rng=rng), sh, rng=rng)
+        out.append((proof, st, sh.get_inputs_vector(), sh.get_outputs_vector()))
+    return out
+
+
+def test_shuffle_verifier_accepts_and_rejects(dev):
+    import dataclasses
+    from quisquis_tpu_torch.accounts.transcript import SeededRng
+    from quisquis_tpu_torch.shuffle.device_verify import DeviceShuffleVerifier
+    entries = _port_shuffles(b"cuda-shuffle", 3, 4)
+    dsv = DeviceShuffleVerifier(3, 4)
+    before = dict(kp.LAUNCHES)
+    dsv.verify(entries, rng=SeededRng(seed=b"w"))
+    ran = {k: kp.LAUNCHES[k] - before[k] for k in kp.LAUNCHES}
+    assert ran["scalar_mul"] == 1 and ran["base_mul"] == 0 and ran["keccak_f1600"] > 0
+    assert ran["msm_table"] == ran["msm_acc"] == ran["msm_tail"] == 2
+    p, st, ins, outs = entries[2]
+    bad = list(entries)
+    bad[2] = (dataclasses.replace(p, hadamard_proof=dataclasses.replace(
+        p.hadamard_proof, a_bar=[p.hadamard_proof.a_bar[0] + 1] + p.hadamard_proof.a_bar[1:])),
+        st, ins, outs)
+    with pytest.raises(ValueError):
+        dsv.verify(bad, rng=SeededRng(seed=b"w"))
+
+
+def test_sigma_device_functions_equal_host(dev):
+    from quisquis_tpu_torch.accounts import device_verifier as dvf
+    from quisquis_tpu_torch.accounts.accounts import Account
+    from quisquis_tpu_torch.accounts.prover import Prover
+    from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
+    from quisquis_tpu_torch.accounts.verifier import Verifier
+    from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey
+    rng = SeededRng(seed=b"cuda-sigma")
+    accounts, rs = [], []
+    for _ in range(16):
+        acc, r = Account.generate_account(
+            RistrettoPublicKey.update_public_key(RistrettoPublicKey.generate_base_pk(),
+                                                 rng.random_scalar()), rng)
+        accounts.append(acc)
+        rs.append(r)
+    z, x = Prover.zero_balance_account_vector_prover(
+        accounts, rs, Prover(b"DLOGProof", Transcript(b"ZB"), rng=rng)).get_dlog()
+    for fn in (dvf.zero_balance_account_vector_verifier_device,
+               Verifier.zero_balance_account_vector_verifier):
+        fn(accounts, z, x, Verifier(b"DLOGProof", Transcript(b"ZB")))
+    assert (dvf.zero_balance_encodings(accounts, z, x)
+            == dvf.zero_balance_encodings(accounts, z, x, device="cpu")).all()
+    values = [(-5) % ex.L, 5] + [0] * 14
+    delta, eps, rsc = Account.create_delta_and_epsilon_accounts(
+        accounts, values, RistrettoPublicKey.generate_base_pk(), rng)
+    zv, zr1, zr2, x = Prover.verify_delta_compact_prover(
+        delta, eps, rsc, values, Prover(b"DLEQProof", Transcript(b"DC"), rng=rng)).get_dleq()
+    before = dict(kp.LAUNCHES)
+    dvf.verify_delta_compact_verifier_device(delta, eps, zv, zr1, zr2, x,
+                                             Verifier(b"DLEQProof", Transcript(b"DC")))
+    assert kp.LAUNCHES["scalar_mul"] == before["scalar_mul"] + 1
+    assert kp.LAUNCHES["base_mul"] == before["base_mul"] + 1
+    with pytest.raises(ValueError):
+        dvf.verify_delta_compact_verifier_device(delta, eps, [(zv[0] + 1) % ex.L] + zv[1:], zr1,
+                                                 zr2, x, Verifier(b"DLEQProof", Transcript(b"DC")))
+    assert (dvf.delta_compact_encodings(delta, eps, zv, zr1, zr2, x)
+            == dvf.delta_compact_encodings(delta, eps, zv, zr1, zr2, x, device="cpu")).all()
+
+
+def test_deferred_device_equals_host(dev):
+    from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks
+    r = random.Random(11)
+    pts = [ex.pt_base_mul(r.randrange(ex.L)) for _ in range(300)]
+    for bad in (False, True):
+        verdicts = []
+        for backend in ("host", "device"):
+            checks = DeferredPointChecks(b"cuda-deferred")
+            for i in range(0, 300, 3):
+                a, b = r.randrange(1, ex.L), r.randrange(1, ex.L)
+                s = ex.pt_add(ex.pt_mul(a, pts[i]), ex.pt_mul(b, pts[i + 1]))
+                checks.check_eq([a, b + (bad and i == 150)], pts[i:i + 2], s, f"row {i}")
+            try:
+                checks.verify(backend=backend)
+                verdicts.append(True)
+            except ValueError:
+                verdicts.append(False)
+        assert verdicts == [not bad, not bad]
+
+
+def test_shuffle_path_shapes_equal_plain(dev):
+    """scalar_mul over the B (3m + 3) product lanes and msm_rows over the
+    [6B, N + 1] statement rows of the m = 8, B = 16 shuffle verifier."""
+    m, B = 8, 16
+    lanes, rows, k = B * (3 * m + 3), 6 * B, m * m + 1
+    nib = torch.as_tensor(pt.scalars_to_nibbles(_scalars(lanes + rows * k)), device=dev)
+    p = kp.base_mul(nib.flip(0).contiguous())
+    got = kp.scalar_mul(nib[:lanes], pt.ExtPoint(*(c[:lanes] for c in p)))
+    want = pt.scalar_mul(nib[:lanes], pt.ExtPoint(*(c[:lanes] for c in p)))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    nib_rk = nib[lanes:].reshape(rows, k, 64)
+    p_rk = pt.ExtPoint(*(c[lanes:].reshape(rows, k, fe.NLIMBS) for c in p))
+    digits, flat = kp.pad_rows(nib_rk, p_rk)
+    plain = qmsm.msm_tail(qmsm.msm_window_sums(digits, qmsm.msm_table(flat), rows))
+    assert all(torch.equal(a, b) for a, b in zip(kp.msm_rows(nib_rk, p_rk), plain))

@@ -88,6 +88,21 @@ def test_default_device_raises_without_gpu():
         dv.get_device_range_verifier(8, 1, 4)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         RangeProof.batch_verify([(None, [b""], Transcript(b"RangeProof"))], 8)
+    from quisquis_tpu_torch.accounts import device_verifier as dvf
+    from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks
+    from quisquis_tpu_torch.shuffle import device_verify as sdv
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        dvf.zero_balance_encodings([], [], 1)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        dvf.delta_compact_encodings([], [], [], [], [], 1)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        sdv.DeviceShuffleVerifier(2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        sdv.get_device_shuffle_verifier(2, 2)
+    checks = DeferredPointChecks(b"iso")
+    checks.check([1], [ex.BASEPOINT], "iso")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        checks.verify(backend="device")
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -12,6 +12,7 @@ import torch
 from quisquis_tpu.accounts.transcript import SeededRng as JaxSeededRng
 from quisquis_tpu.accounts.transcript import Transcript as JaxTranscript
 from quisquis_tpu.bulletproofs.range_proof import RangeProof as JaxRangeProof
+from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks
 from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
 from quisquis_tpu_torch.bulletproofs import device_verify as dv
 from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
@@ -82,8 +83,7 @@ def test_port_prover_bytes_equal_jax(honest):
     single.verify_single(Transcript(b"RangeProof"), v1, N_BITS)
     with pytest.raises(ValueError):
         RangeProof.prove_multiple(Transcript(b"RangeProof"), [256], [1], N_BITS, rng=rng)
-    with pytest.raises(NotImplementedError, match="deferred"):
-        RangeProof.batch_verify([], N_BITS, backend="host")
+    RangeProof.batch_verify([], N_BITS, backend="host")  # an empty batch holds
     assert RangeProof.prove_batch([], N_BITS) == []
     with pytest.raises(NotImplementedError, match="device_prove"):
         RangeProof.prove_batch([], N_BITS, backend="device-batched")
@@ -177,3 +177,40 @@ def test_batch_verify_groups_by_width(honest):
         dv.device_batch_verify(instances([bad]), N_BITS, rng=wrng, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         RangeProof.batch_verify([], N_BITS, backend="tpu")
+
+
+def test_batch_verify_host_equals_device_batched(honest):
+    """RangeProof.batch_verify's "host" backend (transcripts replayed here,
+    one deferred MSM), with and without a caller's accumulator, gives the
+    verdict of "device-batched" and of the JAX host backend."""
+    blob = bytearray(honest[2][0])
+    blob[130] ^= 1
+    bad = honest[:2] + [(bytes(blob), honest[2][1])]
+    for batch, want in ((honest, True), (bad, False)):
+        def port(backend, defer=None):
+            inst = [(RangeProof.from_bytes(b), V, Transcript(b"RangeProof")) for b, V in batch]
+            try:
+                RangeProof.batch_verify(inst, N_BITS, rng=SeededRng(seed=b"hb"), defer=defer,
+                                        backend=backend, device="cpu")
+                if defer is not None:
+                    defer.verify(backend="device", device="cpu")
+            except ValueError:
+                return False
+            return True
+
+        def jax():
+            inst = [(JaxRangeProof.from_bytes(b), V, JaxTranscript(b"RangeProof"))
+                    for b, V in batch]
+            try:
+                JaxRangeProof.batch_verify(inst, N_BITS, rng=JaxSeededRng(seed=b"hb"),
+                                           backend="host")
+            except ValueError:
+                return False
+            return True
+
+        got = [port("host"), port("device-batched"), port("auto", DeferredPointChecks(b"d")),
+               jax()]
+        assert got == [want] * 4, got
+    with pytest.raises(ValueError, match="deferred accumulator"):
+        RangeProof.batch_verify([], N_BITS, defer=DeferredPointChecks(b"d"),
+                                backend="device-batched")
