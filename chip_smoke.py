@@ -5,10 +5,12 @@
 
 Phases, each printed on its own line:
   1. require a CUDA GPU; print its name and power limit (nvidia-smi);
-  2. build the six CUDA kernels from csrc/ (nvcc, at first use); meanwhile
-     four worker processes make four aggregated range proofs (n = 64,
-     m = 16) with the port's host prover and check each with the host
-     verifier;
+  2. build the six CUDA kernels from csrc/ (nvcc, at first use) and check
+     that the host transcripts use the C++ STROBE (csrc/host_strobe.cpp,
+     built with g++ at the transcripts' first import); meanwhile four
+     worker processes make four aggregated range proofs (n = 64, m = 16)
+     with the port's host prover, timed, and check each with the host
+     verifier; they are done before phase 6;
   3. hold each kernel against its plain PyTorch version on the card at
      B = 256, limb for limb (edge scalars included: integers up to
      2^256 - 1, for scalar_mul also the identity and points with
@@ -43,9 +45,9 @@ Phases, each printed on its own line:
      line of its own), msm_tail's and Keccak's chain floors, verify wall
      time and proofs per second, the device's busy share over one profiled
      call;
- 10. the sigma and shuffle proofs for phases 10 and 11 from the port's
-     host prover in six worker processes, started only now so that no
-     prover shares the host with a timed call; then the sigma verifiers
+ 10. the sigma and shuffle proofs for phases 10, 11 and 13 from the port's
+     host prover in six worker processes, started only now and waited for
+     here, so that no prover shares the host with a timed call; then the sigma verifiers
      (accounts/device_verifier.py) at n = 64 and n = 1,024 of phase 5's
      Accounts: delta-compact and zero-balance proofs, honest proofs
      accepted, zv + 1 and z + 1 rejected, the device's e/f encodings equal
@@ -68,7 +70,26 @@ Phases, each printed on its own line:
      replay, batch_verify_shuffle_proofs by "host", "device" and
      "device-batched", and DeferredPointChecks "host" against "device" on
      the same terms, on one proof's terms and on a few-term check;
- 12. one JSON line per contract with every kernel's numbers, then the
+ 12. range proving at full width: DeviceRangeProver(n=64, m=16, batch=32),
+     benchmarks.py row 4e. Lanes 0-3 replay phase 2's rng streams and equal
+     the host prover's proofs byte for byte; all 32 proofs are accepted by
+     phase 8's verifier (the 32 twice) and one flipped byte is rejected;
+     RangeProof.prove_batch("device-batched") on 5 lanes runs as a bucket
+     of 8, equals the prover's proofs and advances the host transcripts.
+     The kernels at the prover's shapes against their plain versions
+     (msm_table on the cached basis, msm_acc and msm_tail on the V/A/S
+     rows, the T rows and an inner-product round, Keccak on its states);
+     times: each kernel's launches a prove and device time by graph
+     replay, the median of 5 proves, host packing apart, the prover at
+     batch 2, the host prover's time a proof, one profiled call;
+ 13. shuffle proving at full width: DeviceShuffleProver(m=8, batch=16) on
+     phase 10's 16 shuffles, each lane's rng copied just before its host
+     proof: all 16 proofs and statements equal the host prover's field for
+     field and phase 11's verifier accepts them; m = 3 likewise;
+     batch_create_shuffle_proofs("device-batched") on 5 shuffles runs as a
+     bucket of 8. The kernels on the prover's largest rows call and Keccak
+     on its states against their plain versions; times as in phase 12;
+ 14. one JSON line per contract with every kernel's numbers, then the
      final status line.
 
 Any failed check raises, and the script exits non-zero. It also exits
@@ -77,6 +98,7 @@ non-zero without a GPU or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -96,6 +118,10 @@ N_MAIN = 16_384
 B_CHECK = 256
 N_ACCOUNTS = 1_024
 RANGE_N, RANGE_M, RANGE_BATCH = 64, 16, 64   # the verifier's full width
+RANGE_PROVE_BATCH = 32                        # the prover's full width (benchmarks.py row 4e)
+RANGE_PROVE_SMALL = 2                         # the smallest bucket of prove_batch
+PROVE_REPS = 5                                # timed prove calls
+PLAIN_ROWS = 64                               # rows a chunk of the plain window sums
 N_PROOFS = 4                                  # distinct proofs; the lanes repeat them
 N_WORKERS = 6                                 # host provers in worker processes
 SIGMA_NS = (64, 1_024)                        # config 5's anonymity set; phase 5's Accounts
@@ -182,8 +208,11 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase, msg: str) -> None:
-    print(f"phase {phase}: {msg}", flush=True)
+    print(f"phase {phase}: [{time.perf_counter() - _T0:.1f} s] {msg}", flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -222,9 +251,12 @@ def time_once(fn):
 def profile_line(fn, card: str, what: str, names) -> str:
     """Device time by kernel and the device's busy share over one call of
     fn, from torch.profiler's kernel events (wall time on the host clock,
-    with the profiler's own overhead). names: the CUDA kernels to list."""
+    with the profiler's own overhead). names: the CUDA kernels to list.
+    Only device activity is recorded: the busy share reads kernel events
+    alone, and the host events of a prove (a few hundred thousand) took
+    the profiler about two minutes to collect."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -250,26 +282,39 @@ def profile_line(fn, card: str, what: str, names) -> str:
             f"(idle {1 - busy / wall_us:.3f}) [{card}]")
 
 
+def range_lane(i: int):
+    """Range lane i's values, blindings and rng (from its own seed), as the
+    host prover gets them."""
+    from quisquis_tpu_torch.accounts.transcript import SeededRng
+    prng = SeededRng(seed=b"chip-smoke-range-%d" % i)
+    values = [int.from_bytes(prng.fill_bytes(RANGE_N // 8), "little") for _ in range(RANGE_M)]
+    blindings = [prng.random_scalar() for _ in range(RANGE_M)]
+    return values, blindings, prng
+
+
 def prove_and_check(i: int):
     """Worker process: one aggregated range proof (n = 64, m = 16) from the
     port's host prover, checked by the port's host verifier. Returns the
-    proof's bytes and its value commitments."""
+    proof's bytes, its value commitments, the prover transcript's snapshot
+    after the proof and the host prove time in seconds."""
     sys.path.insert(0, REPO)
-    from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
+    from quisquis_tpu_torch.accounts.transcript import Transcript
     from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
-    prng = SeededRng(seed=b"chip-smoke-range-%d" % i)
-    values = [int.from_bytes(prng.fill_bytes(8), "little") for _ in range(RANGE_M)]
-    blindings = [prng.random_scalar() for _ in range(RANGE_M)]
-    proof, commitments = RangeProof.prove_multiple(Transcript(b"RangeProof"), values,
-                                                   blindings, RANGE_N, rng=prng)
+    from quisquis_tpu_torch.ops.device_strobe import snapshot_host_strobe
+    values, blindings, prng = range_lane(i)
+    t = Transcript(b"RangeProof")
+    t0 = time.perf_counter()
+    proof, commitments = RangeProof.prove_multiple(t, values, blindings, RANGE_N, rng=prng)
+    prove_s = time.perf_counter() - t0
     proof.verify_multiple(Transcript(b"RangeProof"), commitments, RANGE_N)  # raises if wrong
-    return proof.to_bytes(), commitments
+    return proof.to_bytes(), commitments, snapshot_host_strobe(t.strobe), prove_s
 
 
 def shuffle_proof(accounts, tag: bytes):
     """Worker process: one shuffle of `accounts` and its proof from the
     port's host prover, checked by the port's host verifier. Returns
-    (proof, statement, inputs, outputs)."""
+    ((proof, statement, inputs, outputs), the Shuffle, a copy of its rng
+    taken just before the proof, the host prove time in seconds)."""
     sys.path.insert(0, REPO)
     from quisquis_tpu_torch.accounts.prover import Prover
     from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
@@ -277,11 +322,14 @@ def shuffle_proof(accounts, tag: bytes):
     from quisquis_tpu_torch.shuffle.shuffle import Shuffle, ShuffleProof
     rng = SeededRng(seed=tag)
     shuffle = Shuffle.input_shuffle(accounts, rng=rng)
+    before = copy.deepcopy(rng)
+    t0 = time.perf_counter()
     proof, statement = ShuffleProof.create_shuffle_proof(
         Prover(b"Shuffle", Transcript(b"ShuffleProof"), rng=rng), shuffle, rng=rng)
+    prove_s = time.perf_counter() - t0
     entry = (proof, statement, shuffle.get_inputs_vector(), shuffle.get_outputs_vector())
     proof.verify(Verifier(b"Shuffle", Transcript(b"ShuffleProof")), *entry[1:])  # raises if wrong
-    return entry
+    return entry, shuffle, before, prove_s
 
 
 def sigma_rows(kind: str, accounts, eps, proof, sample):
@@ -337,8 +385,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import quisquis_tpu_torch  # noqa: F401  (fails here, before any process starts, outside a checkout)
     # the host provers are pure Python and slow: they run in worker
-    # processes, the range proofs beside phases 2-7 (phase 8 collects them),
-    # the sigma and shuffle proofs after phase 9's timed calls
+    # processes, the range proofs beside phases 2-5 (waited for before phase
+    # 6), the sigma and shuffle proofs after phase 9's timed calls
     with ProcessPoolExecutor(N_WORKERS, mp_context=get_context("spawn")) as pool:
         return phases(pool)
 
@@ -349,8 +397,10 @@ def phases(pool) -> int:
     from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks
     from quisquis_tpu_torch.accounts.device_accounts import (
         create_delta_and_epsilon_accounts_device, update_accounts_device)
+    from quisquis_tpu_torch.accounts import transcript as transcript_mod
     from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
     from quisquis_tpu_torch.accounts.verifier import Verifier
+    from quisquis_tpu_torch.bulletproofs import device_prove as rdp
     from quisquis_tpu_torch.bulletproofs.device_verify import DeviceRangeVerifier
     from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
     from quisquis_tpu_torch.kernel_ab import graph_ms
@@ -361,14 +411,18 @@ def phases(pool) -> int:
     from quisquis_tpu_torch.ops import device_keccak as dk
     from quisquis_tpu_torch.ops import exact as ex
     from quisquis_tpu_torch.ops import field as fe
+    from quisquis_tpu_torch.ops import host_strobe as hs
     from quisquis_tpu_torch.ops import keccak as host_keccak
     from quisquis_tpu_torch.ops import msm as qmsm
     from quisquis_tpu_torch.ops import point as pt
+    from quisquis_tpu_torch.ops.device_strobe import snapshot_host_strobe
     from quisquis_tpu_torch.primitives.elgamal import ElGamalCommitment
     from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey, RistrettoSecretKey
+    from quisquis_tpu_torch.shuffle import device_prove as sdp
     from quisquis_tpu_torch.shuffle import device_verify as sdv
     from quisquis_tpu_torch.shuffle.device_verify import DeviceShuffleVerifier, device_batch_verify
-    from quisquis_tpu_torch.shuffle.shuffle import batch_verify_shuffle_proofs
+    from quisquis_tpu_torch.shuffle.shuffle import (batch_create_shuffle_proofs,
+                                                    batch_verify_shuffle_proofs)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -392,6 +446,13 @@ def phases(pool) -> int:
             RistrettoSecretKey.random(srng), srng), srng)[0] for _ in range(m_ * m_)]
     cb.load_library()
     say(2, f"{len(cb.KERNEL_SOURCES)} kernels built or loaded in {cb.build_seconds():.1f} s")
+    check(hs.available(), f"the C++ host STROBE builds and loads: {hs.build_error()}")
+    check(transcript_mod.Strobe128 is hs.NativeStrobe128,
+          "the host transcripts use the C++ STROBE")
+    say(2, f"C++ host STROBE (csrc/host_strobe.cpp): "
+           f"{'compiled by g++' if hs.compiled() else 'an earlier build loaded'} in "
+           f"{hs.build_seconds():.3f} s at the first import of the transcripts; the host "
+           f"transcripts use it")
     for line in cb.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
@@ -592,6 +653,11 @@ def phases(pool) -> int:
             "dlog": (z_s, None, ("dlog", [a.as_bytes() for a in z_s], [], rz_s, None, sample)),
             "sample": sample}
 
+    # the range proofs are done before any timed call
+    t0 = time.perf_counter()
+    proved = [f.result(timeout=900) for f in proving]
+    proofs_wait_s = time.perf_counter() - t0
+
     # -- phase 6: kernels against plain versions at the main path's widths,
     # then times on this card ---------------------------------------------
     plain, plain_ms = {}, {}
@@ -701,14 +767,14 @@ def phases(pool) -> int:
            f"max_abs_err { {k: err[k] for k in SLICE2} }")
 
     # -- phase 8: the range verifier at full width --------------------------
-    t0 = time.perf_counter()
-    proved = [f.result(timeout=900) for f in proving]
+    host_range_s = [p[3] for p in proved]
     say(8, f"{N_PROOFS} range proofs (n={RANGE_N}, m={RANGE_M}) from the port's host prover, "
-           f"each accepted by the host verify_multiple (worker processes; waited "
-           f"{time.perf_counter() - t0:.1f} s more for them)")
+           f"each accepted by the host verify_multiple (worker processes, done before phase "
+           f"6; waited {proofs_wait_s:.1f} s for them after phase 5); host prove "
+           + ", ".join(f"{t * 1e3:.1f}" for t in host_range_s) + " ms a proof")
     lanes = [proved[i % N_PROOFS] for i in range(RANGE_BATCH)]
-    proofs = [RangeProof.from_bytes(blob) for blob, _ in lanes]
-    commitments = [list(v) for _, v in lanes]
+    proofs = [RangeProof.from_bytes(p[0]) for p in lanes]
+    commitments = [list(p[1]) for p in lanes]
     drv = DeviceRangeVerifier(RANGE_N, RANGE_M, RANGE_BATCH)
     n_msm = 2 + 2 * drv.nm + RANGE_BATCH * (RANGE_M + 4 + 2 * drv.k)
     drv.warmup()
@@ -856,8 +922,9 @@ def phases(pool) -> int:
                                   % (m_, i)) for i in range(SHUFFLE_B)]
                  for m_ in (SHUFFLE_M, SHUFFLE_M_SMALL)}
     proved_sigma = {key: f.result(timeout=900) for key, f in jobs.items()}
-    entries = [f.result(timeout=900) for f in shuffling[SHUFFLE_M]]
-    entries3 = [f.result(timeout=900) for f in shuffling[SHUFFLE_M_SMALL]]
+    shuffled = {m_: [f.result(timeout=900) for f in fs] for m_, fs in shuffling.items()}
+    entries = [r[0] for r in shuffled[SHUFFLE_M]]
+    entries3 = [r[0] for r in shuffled[SHUFFLE_M_SMALL]]
     say(10, f"sigma proofs at n={SIGMA_NS} and {SHUFFLE_B} shuffle proofs at m={SHUFFLE_M} and "
             f"{SHUFFLE_B} at m={SHUFFLE_M_SMALL} from the port's host prover, each shuffle "
             f"proof accepted by the host verifier ({N_WORKERS} worker processes, started after "
@@ -1185,7 +1252,356 @@ def phases(pool) -> int:
             + " / ".join(f"{v * 1e3:.2f}" for v in defer_s["host few"]) + " ms, device "
             + " / ".join(f"{v * 1e3:.2f}" for v in defer_s["device few"]) + f" ms [{card}]")
 
-    # -- phase 12 -----------------------------------------------------------
+    # the MSM stages on rows of any size against their plain versions (the
+    # plain window sums in chunks of PLAIN_ROWS rows: 576 rows of 2,176
+    # points at once would need tens of GB; the plain tail on all rows at
+    # once, its Horner chain costs the same at any row count); and each
+    # stage's device time by graph replay of direct launches
+    def rows_against_plain(digits, table, rows, what, flat=None):
+        """msm_acc (and msm_table on `flat`, if given) and msm_tail on these
+        inputs against their plain versions, limb for limb. Returns the
+        plain versions' ms (CUDA events, summed over the chunks)."""
+        n_all = digits.shape[1]
+        kp_ = n_all // rows
+        plain_t = {"msm_table": 0.0, "msm_acc": 0.0, "msm_tail": 0.0}
+        if flat is not None:
+            want, plain_t["msm_table"] = time_once(lambda: qmsm.msm_table(flat))
+            same(table, want, "msm_table", what)
+        sums = kp.msm_window_sums(digits, table, rows)
+        for r0 in range(0, rows, PLAIN_ROWS):
+            r1 = min(rows, r0 + PLAIN_ROWS)
+            cols = slice(r0 * kp_, r1 * kp_)
+            want, t_ms = time_once(lambda: qmsm.msm_window_sums(
+                digits[:, cols].contiguous(),
+                pt.ExtPoint(*(c[..., cols].contiguous() for c in table)), r1 - r0))
+            plain_t["msm_acc"] += t_ms
+            same(pt.ExtPoint(*(c[r0:r1] for c in sums)), want, "msm_acc", what)
+        want, plain_t["msm_tail"] = time_once(lambda: qmsm.msm_tail(sums))
+        same(kp.msm_tail(sums), want, "msm_tail", what)
+        return plain_t
+
+    def table_graph_ms(flat):
+        """Device time of msm_table on the points `flat`, by graph replay."""
+        table_ = empty_pt((16, fe.NLIMBS, flat.x.shape[0]))
+        return graph_ms(direct(lib.qq_msm_table, *ptrs(flat), *ptrs(table_), flat.x.shape[0]),
+                        launches=4, replays=3)
+
+    def rows_graph_ms(digits, table, rows):
+        """Device time of msm_acc and msm_tail on these inputs, by graph
+        replay of direct launches."""
+        n_all = digits.shape[1]
+        sums_ = empty_pt((rows, 64, fe.NLIMBS, qmsm.MSM_LANES))
+        out_ = empty_pt((rows, fe.NLIMBS))
+        totals_ = torch.empty((rows, 64, 4, fe.NLIMBS), dtype=torch.int32, device=dev)
+        reps = dict(launches=4, replays=3)
+        got = {"msm_acc": graph_ms(direct(lib.qq_msm_acc, digits.data_ptr(), *ptrs(table),
+                                          *ptrs(sums_), rows, n_all // (rows * qmsm.MSM_LANES),
+                                          qmsm.MSM_LANES), **reps)}
+
+        def tail():
+            done = torch.zeros((rows,), dtype=torch.int32, device=dev)
+            check(lib.qq_msm_tail(*ptrs(sums_), totals_.data_ptr(), done.data_ptr(),
+                                  *ptrs(out_), rows, qmsm.MSM_LANES,
+                                  torch.cuda.current_stream().cuda_stream) == 0, "direct launch")
+
+        got["msm_tail"] = graph_ms(tail, **reps)
+        return got
+
+    def rows_bounds(rows, real):
+        """Bounds of msm_acc and msm_tail on `rows` rows of `real` points
+        each (row padding excluded)."""
+        sums_b = rows * 64 * 4 * fe.NLIMBS * qmsm.MSM_LANES * 4
+        pts_ = rows * real
+        return {"msm_acc": bound(pts_ * 64 * MSM_PRODUCTS["add"],
+                                 pts_ * (64 * 4 + 16 * point_bytes) + sums_b),
+                "msm_tail": bound(rows * MSM_PRODUCTS["tail_row"], sums_b + rows * point_bytes)}
+
+    def keep_calls(patches):
+        """Patch (module, name, key) wrappers to record their argument
+        tuples in seen[key]; returns (seen, restore)."""
+        seen_ = {key: [] for _, _, key in patches}
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+        for (mod, name, key), (_, _, real) in zip(patches, saved):
+            def keep(*a, _real=real, _key=key):
+                seen_[_key].append(a)
+                return _real(*a)
+            setattr(mod, name, keep)
+
+        def restore():
+            for mod, name, real in saved:
+                setattr(mod, name, real)
+        return seen_, restore
+
+    def median_ms(fn, reps=PROVE_REPS):
+        """Median host-clock ms of fn() over reps calls (each synchronised)."""
+        walls_ = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls_.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(walls_), min(walls_), max(walls_)
+
+    # -- phase 12: range proving at full width -------------------------------
+    RB = RANGE_PROVE_BATCH
+
+    def range_args(first=0, count=RB):
+        ls = [range_lane(first + i) for i in range(count)]
+        return [v for v, _, _ in ls], [b for _, b, _ in ls], [r for _, _, r in ls]
+
+    cb.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drp = rdp.DeviceRangeProver(RANGE_N, RANGE_M, RB)
+    proofs_d, vlists_d = drp.prove(*range_args())
+    first_s = time.perf_counter() - t0
+    first_launches = dict(cb.LAUNCHES)
+    check(all(first_launches[k] > 0 for k in SLICE2), f"first prove launches {first_launches}")
+    check(all(first_launches[k] == 0 for k in SLICE1), f"first prove launches {first_launches}")
+    check(first_launches["msm_table"] == 2, "the first prove builds the two basis tables")
+    for i in range(N_PROOFS):
+        check(proofs_d[i].to_bytes() == proved[i][0] and vlists_d[i] == list(proved[i][1]),
+              f"range lane {i} == the host prover's proof, byte for byte")
+    drv.verify(proofs_d + proofs_d, vlists_d + vlists_d, rng=wrng)  # raises unless accepted
+    bad = list(proofs_d + proofs_d)
+    bad[7] = flipped(bad[7], 3)
+    try:
+        drv.verify(bad, vlists_d + vlists_d, rng=wrng)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("check failed: a device proof with a flipped byte was accepted")
+    cb.reset_launches()
+    drp.prove(*range_args())
+    rp_launches = {k: v for k, v in cb.LAUNCHES.items() if v}
+    check(rp_launches.get("msm_table", 0) == 0 and rp_launches.get("msm_acc") == 2 + drp.k
+          and rp_launches.get("msm_tail") == 2 + drp.k,
+          f"a prove after the first: V/A/S, T and {drp.k} rounds on the cached tables "
+          f"({rp_launches})")
+    rdp._PROVER_CACHE.clear()
+    pb_lanes = [(Transcript(b"RangeProof"), v, b, r) for v, b, r in zip(*range_args(0, 5))]
+    pb = RangeProof.prove_batch(pb_lanes, RANGE_N, backend="device-batched")
+    check([k[:3] for k in rdp._PROVER_CACHE] == [(RANGE_N, RANGE_M, 8)],
+          "prove_batch on 5 lanes ran as a bucket of 8")
+    check([p_.to_bytes() for p_, _ in pb] == [p_.to_bytes() for p_ in proofs_d[:5]],
+          "prove_batch's proofs == DeviceRangeProver's")
+    for i, (t_, *_) in enumerate(pb_lanes):
+        if i < N_PROOFS:
+            want = proved[i][2]
+        else:
+            t5 = Transcript(b"RangeProof")
+            proofs_d[i].advance_transcript(t5, vlists_d[i], RANGE_N)
+            want = snapshot_host_strobe(t5.strobe)
+        check(snapshot_host_strobe(t_.strobe) == want,
+              f"prove_batch advanced lane {i}'s host transcript")
+    say(12, f"DeviceRangeProver(n={RANGE_N}, m={RANGE_M}, batch={RB}): lanes 0-{N_PROOFS - 1} "
+            f"== the host prover's proofs byte for byte; all {RB} proofs accepted by "
+            f"DeviceRangeVerifier({RANGE_N}, {RANGE_M}, {RANGE_BATCH}) (the {RB} twice), one "
+            f"flipped byte rejected; first call (tables built) {first_s:.2f} s, launches "
+            f"{ {k: v for k, v in first_launches.items() if v} }, launches a prove after it "
+            f"{rp_launches}; prove_batch on 5 lanes ran as a bucket of 8, equal proofs, host "
+            f"transcripts advanced (lanes 0-3 == the host prover's) [{card}]")
+
+    # the kernels at the prover's shapes: one more prove records their inputs
+    seen, restore = keep_calls([(kp, "msm_window_sums", "acc"), (kk, "f1600", "keccak")])
+    try:
+        drp.prove(*range_args())
+    finally:
+        restore()
+    acc_calls = seen["acc"]
+    check(len(acc_calls) == 2 + drp.k, f"{len(acc_calls)} msm_acc calls a prove")
+    basis = drp._basis
+    kpad = basis.table().x.shape[-1]
+    flat_b = pt.ExtPoint(*(torch.cat([c, e]) for c, e in
+                           zip(basis.points, pt.identity((kpad - basis.k,), dev))))
+    vas, t_call, ipp0 = acc_calls[0], acc_calls[1], acc_calls[2]
+    check(vas[2] == RB * (RANGE_M + 2) and vas[0].shape[1] == vas[2] * kpad,
+          f"V/A/S rows {vas[2]} x {kpad}")
+    # the cached basis table (what every V/A/S and IPP row is tiled from)
+    want, t_table = time_once(lambda: qmsm.msm_table(flat_b))
+    same(basis.table(), want, "msm_table", f"the range prover's cached basis ({kpad} points)")
+    p_tab = rows_against_plain(*vas, f"the range prover's V/A/S rows ({vas[2]} x {kpad})")
+    p_tab["msm_table"] = t_table
+    p_ipp = rows_against_plain(*ipp0, f"the range prover's IPP round ({ipp0[2]} x {kpad})")
+    p_t = rows_against_plain(*t_call, f"the range prover's T rows ({t_call[2]} x 128)")
+    check({tuple(st.shape) for (st,) in seen["keccak"]} == {(RB, 200)},
+          "prover states [32, 200]")
+    states_all = torch.cat([st for (st,) in seen["keccak"]])
+    check(torch.equal(kk.f1600(states_all), dk.f1600_plain(states_all)),
+          "keccak_f1600 == plain on every range prover transcript state of a prove")
+    say(12, f"kernels == plain versions at the range prover's shapes: msm_table on the cached "
+            f"basis ({basis.k} points padded to {kpad}), msm_acc / msm_tail on the V/A/S rows "
+            f"({vas[2]} x {kpad}), the T rows ({t_call[2]}) and one inner-product round "
+            f"({ipp0[2]} x {kpad}), keccak_f1600 on {len(seen['keccak'])} transcript states; "
+            f"max_abs_err { {k: err[k] for k in SLICE2} }")
+    g_vas = rows_graph_ms(*vas)
+    g_vas["msm_table"] = table_graph_ms(flat_b)
+    g_ipp = rows_graph_ms(*ipp0)
+    g_t = rows_graph_ms(*t_call)
+    (st_k,) = seen["keccak"][0]
+    out_st = torch.empty_like(st_k)
+    g_keccak = graph_ms(direct(lib.qq_keccak_f1600, st_k.data_ptr(), out_st.data_ptr(), RB))
+    p_keccak = time_once(lambda: dk.f1600_plain(st_k))[1]
+    n_basis = 2 + 2 * drp.nm
+    rows_lines = [("msm_table", f"the cached basis, {n_basis} points ({kpad} padded)", 0,
+                   g_vas["msm_table"], p_tab["msm_table"],
+                   bound(n_basis * MSM_PRODUCTS["table_point"], n_basis * 17 * point_bytes))]
+    for name in ("msm_acc", "msm_tail"):
+        for label, g, p_, rows_, real, n_l in (
+                (f"V/A/S {vas[2]} x {n_basis}", g_vas, p_tab, vas[2], n_basis, 1),
+                (f"T {t_call[2]} x 2", g_t, p_t, t_call[2], 2, 1),
+                (f"IPP round {ipp0[2]} x {n_basis}", g_ipp, p_ipp, ipp0[2], n_basis, drp.k)):
+            rows_lines.append((name, label, n_l, g[name], p_[name],
+                               rows_bounds(rows_, real)[name]))
+    rows_lines.append(("keccak_f1600", f"{RB} states", rp_launches.get("keccak_f1600", 0), g_keccak,
+                       p_keccak, bound(RB * KECCAK_OPS_PER_STATE, RB * 400)))
+    for name, shape, n_l, k_ms, p_ms, (b_ms, b_by) in rows_lines:
+        say(12, f"{name} at the range prover's {shape}: {n_l} launch(es) a prove; device time "
+                f"by graph replay {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}) [{card}]")
+    per_prove = sum(n_l * k_ms for _, _, n_l, k_ms, _, _ in rows_lines)
+    say(12, f"the kernels' device time a range prove: {per_prove:.3f} ms (launches "
+            f"{rp_launches}) [{card}]")
+    args = [range_args() for _ in range(PROVE_REPS)]
+    med, lo, hi = median_ms(lambda: drp.prove(*args.pop()))
+    t = time.perf_counter()
+    packed = drp._pack(*range_args(), None)
+    pack_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    drp._run(*packed)
+    run_ms = (time.perf_counter() - t) * 1e3
+    drp2 = rdp.DeviceRangeProver(RANGE_N, RANGE_M, RANGE_PROVE_SMALL)  # the same tables
+    args2 = [range_args(0, RANGE_PROVE_SMALL) for _ in range(3)]
+    med2, _, _ = median_ms(lambda: drp2.prove(*args2.pop()), reps=3)
+    host_ms = statistics.mean(host_range_s) * 1e3
+    say(12, f"DeviceRangeProver.prove of {RB} proofs (n={RANGE_N}, m={RANGE_M}), host clock, "
+            f"{PROVE_REPS} calls: median {med:.1f} ms (min {lo:.1f}, max {hi:.1f}) = "
+            f"{RB / med * 1e3:.2f} proofs/s, {med / RB:.1f} ms a proof; one call split: host "
+            f"packing (the host prover's {2 * drp.nm + 4} draws a lane) {pack_ms:.1f} ms, "
+            f"program from upload to fetch {run_ms:.1f} ms; at batch {RANGE_PROVE_SMALL}: "
+            f"median of 3 {med2:.1f} ms = {med2 / RANGE_PROVE_SMALL:.1f} ms a proof; the host "
+            f"prover (phase 2's workers, pure-Python points, C++ transcript): {host_ms:.1f} ms "
+            f"a proof [{card}]")
+    args = range_args()
+    say(12, profile_line(lambda: drp.prove(*args), card, "DeviceRangeProver.prove", SLICE2))
+
+    # -- phase 13: shuffle proving at full width -----------------------------
+    def shuffle_args(results):
+        return [r[1] for r in results], [copy.deepcopy(r[2]) for r in results]
+
+    def same_proofs(got_, results, what):
+        for i, ((proof, stmt), r) in enumerate(zip(got_, results)):
+            want_p, want_s = r[0][0], r[0][1]
+            for obj, want_o in ((proof, want_p), (stmt, want_s)):
+                for f in dataclasses.fields(want_o):
+                    check(getattr(obj, f.name) == getattr(want_o, f.name),
+                          f"{what} lane {i}: {type(want_o).__name__}.{f.name} == host")
+
+    sh8 = shuffled[m8]
+    cb.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dsp = sdp.DeviceShuffleProver(m8, b8)
+    got8 = dsp.prove(*shuffle_args(sh8))
+    first_s = time.perf_counter() - t0
+    first_launches = {k: v for k, v in cb.LAUNCHES.items() if v}
+    check(set(first_launches) == set(SLICE2), f"shuffle prove launches {first_launches}")
+    same_proofs(got8, sh8, f"m={m8}")
+    dsv.verify([(p_, s_, e[2], e[3]) for (p_, s_), e in zip(got8, entries)], rng=srng_w)
+    cb.reset_launches()
+    dsp.prove(*shuffle_args(sh8))
+    sp_launches = {k: v for k, v in cb.LAUNCHES.items() if v}
+    dsp3 = sdp.DeviceShuffleProver(SHUFFLE_M_SMALL, b8)
+    t0 = time.perf_counter()
+    got3 = dsp3.prove(*shuffle_args(shuffled[SHUFFLE_M_SMALL]))
+    m3_s = time.perf_counter() - t0
+    same_proofs(got3, shuffled[SHUFFLE_M_SMALL], f"m={SHUFFLE_M_SMALL}")
+    dsv3.verify([(p_, s_, e[2], e[3]) for (p_, s_), e in zip(got3, entries3)], rng=srng_w)
+    sdp._PROVER_CACHE.clear()
+    out5 = batch_create_shuffle_proofs(*shuffle_args(sh8[:5]), backend="device-batched")
+    check([k[:2] for k in sdp._PROVER_CACHE] == [(m8, 8)], "5 shuffles ran as a bucket of 8")
+    same_proofs(out5, sh8[:5], "batch_create_shuffle_proofs")
+    say(13, f"DeviceShuffleProver(m={m8}, batch={b8}): all {b8} proofs and statements == the "
+            f"host prover's field for field, accepted by DeviceShuffleVerifier({m8}, {b8}); "
+            f"first call (tables built) {first_s:.2f} s, launches {first_launches}, a prove "
+            f"after it {sp_launches}; DeviceShuffleProver(m={SHUFFLE_M_SMALL}, batch={b8}) == "
+            f"host and accepted (first call {m3_s * 1e3:.1f} ms); batch_create_shuffle_proofs on 5 "
+            f"shuffles ran as a bucket of 8, == host [{card}]")
+
+    seen, restore = keep_calls([(qmsm, "msm_rows", "rows"), (kk, "f1600", "keccak")])
+    try:
+        dsp.prove(*shuffle_args(sh8))
+    finally:
+        restore()
+    big = max(seen["rows"], key=lambda a: a[0].shape[0] * a[0].shape[1])
+    nib_e, pts_e = big
+    rows_e, k_e = nib_e.shape[0], nib_e.shape[1]
+    digits_e, flat_e = kp.pad_rows(nib_e, pts_e)
+    table_e = kp.msm_table(flat_e)
+    p_e = rows_against_plain(digits_e, table_e, rows_e,
+                             f"the shuffle prover's largest rows call ({rows_e} x {k_e})",
+                             flat=flat_e)
+    check({tuple(st.shape) for (st,) in seen["keccak"]} == {(b8, 200)},
+          "prover states [16, 200]")
+    states_all = torch.cat([st for (st,) in seen["keccak"]])
+    check(torch.equal(kk.f1600(states_all), dk.f1600_plain(states_all)),
+          "keccak_f1600 == plain on every shuffle prover transcript state of a prove")
+    say(13, f"kernels == plain versions at the shuffle prover's shapes: msm_table / msm_acc / "
+            f"msm_tail on its largest rows call (the multi-exponentiation's {rows_e} rows of "
+            f"{k_e} points), keccak_f1600 on {len(seen['keccak'])} transcript states; "
+            f"max_abs_err { {k: err[k] for k in SLICE2} }")
+    g_e = rows_graph_ms(digits_e, table_e, rows_e)
+    g_e["msm_table"] = table_graph_ms(flat_e)
+    b_e = rows_bounds(rows_e, k_e)
+    b_e["msm_table"] = bound(rows_e * k_e * MSM_PRODUCTS["table_point"],
+                             rows_e * k_e * 17 * point_bytes)
+    (st_k,) = seen["keccak"][0]
+    out_st = torch.empty_like(st_k)
+    g_keccak = graph_ms(direct(lib.qq_keccak_f1600, st_k.data_ptr(), out_st.data_ptr(), b8))
+    for name in ("msm_table", "msm_acc", "msm_tail"):
+        say(13, f"{name} at the shuffle prover's {rows_e} x {k_e} rows: {sp_launches.get(name, 0)} "
+                f"launch(es) a prove (all shapes); device time of this call by graph replay "
+                f"{g_e[name]:.4f} ms, plain {p_e[name]:.2f} ms, bound {b_e[name][0]:.5f} ms "
+                f"({b_e[name][1]}) [{card}]")
+    say(13, f"keccak_f1600 at {b8} states: {sp_launches.get('keccak_f1600', 0)} launches a prove; "
+            f"device time by graph replay {g_keccak:.4f} ms, plain "
+            f"{time_once(lambda: dk.f1600_plain(st_k))[1]:.2f} ms, bound "
+            f"{bound(b8 * KECCAK_OPS_PER_STATE, b8 * 400)[0]:.5f} ms [{card}]")
+    args = [shuffle_args(sh8) for _ in range(PROVE_REPS)]
+    med, lo, hi = median_ms(lambda: dsp.prove(*args.pop()))
+    t = time.perf_counter()
+    packed = dsp._pack(*shuffle_args(sh8))
+    pack_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dsp._run(*packed)
+    run_ms = (time.perf_counter() - t) * 1e3
+    host_ms = statistics.mean(r[3] for r in sh8) * 1e3
+    host3_ms = statistics.mean(r[3] for r in shuffled[SHUFFLE_M_SMALL]) * 1e3
+    sh3 = shuffled[SHUFFLE_M_SMALL]
+    args3 = [shuffle_args(sh3) for _ in range(3)]
+    med3, _, _ = median_ms(lambda: dsp3.prove(*args3.pop()), reps=3)
+    small = {}
+    for m_, res in ((m8, sh8), (SHUFFLE_M_SMALL, sh3)):
+        dsp_s = sdp.DeviceShuffleProver(m_, 2)
+        args_s = [shuffle_args(res[:2]) for _ in range(3)]
+        small[m_] = median_ms(lambda: dsp_s.prove(*args_s.pop()), reps=3)[0]
+    say(13, f"DeviceShuffleProver.prove of {b8} proofs (m={m8}, N={m8 * m8}), host clock, "
+            f"{PROVE_REPS} calls: median {med:.1f} ms (min {lo:.1f}, max {hi:.1f}) = "
+            f"{b8 / med * 1e3:.2f} proofs/s, {med / b8:.1f} ms a proof; one call split: host "
+            f"packing {pack_ms:.1f} ms, program from upload to fetch {run_ms:.1f} ms; m="
+            f"{SHUFFLE_M_SMALL}, batch {b8}: median of 3 {med3:.1f} ms = {med3 / b8:.1f} ms a "
+            f"proof; batch 2: median of 3 {small[m8]:.1f} ms at m={m8} ("
+            f"{small[m8] / 2:.1f} ms a proof), {small[SHUFFLE_M_SMALL]:.1f} ms at "
+            f"m={SHUFFLE_M_SMALL} ({small[SHUFFLE_M_SMALL] / 2:.1f} ms a proof); the host prover "
+            f"(phase 10's workers): {host_ms:.1f} ms a proof at m={m8}, {host3_ms:.1f} at "
+            f"m={SHUFFLE_M_SMALL} [{card}]")
+    args = shuffle_args(sh8)
+    say(13, profile_line(lambda: dsp.prove(*args), card, "DeviceShuffleProver.prove", SLICE2))
+
+    # -- phase 14 -----------------------------------------------------------
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,18 +6,21 @@ Laid out like the JAX package it is ported from:
                 transcripts, the multiscalar multiplication, the CUDA kernel
                 wrappers (cuda_point, cuda_keccak) and their loader
                 (cuda_build), batched commitments, and its own copy of the
-                exact host backend, Keccak and STROBE
+                exact host backend, Keccak and STROBE (pure Python, and the
+                C++ STROBE of host_strobe)
   primitives/   keys, ElGamal commitments and Pedersen generators (host objects)
   accounts/     Account, Merlin transcripts, device-batched account updates,
                 host sigma prover and verifier, the device sigma verifiers
                 (device_verifier), deferred point checks (deferred)
   bulletproofs/ host range prover and verifier; the device-batched range
-                verifier (device_verify)
+                verifier (device_verify) and prover (device_prove)
   shuffle/      host shuffle prover and verifier; the device-batched shuffle
-                verifier (device_verify)
+                verifier (device_verify) and prover (device_prove)
   utils/        metrics and timers
   config.py     protocol settings (anonymity-set size, range bits)
-  csrc/         the CUDA C++ sources, built with nvcc at first use
+  csrc/         the CUDA C++ sources, built with nvcc at first use, and the
+                host STROBE (host_strobe.cpp, built with g++ at first use;
+                ops/host_strobe.py)
 
 It imports torch and numpy, never jax, and nothing of quisquis_tpu. Public
 entry points take ``device=`` (default ``"cuda"``) and raise when no GPU is

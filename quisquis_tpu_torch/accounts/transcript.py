@@ -18,7 +18,12 @@ import os
 import struct
 
 from ..ops import exact as ex
-from ..ops.strobe import Strobe128
+from ..ops import host_strobe as _native
+from ..ops.strobe import Strobe128 as PyStrobe128
+
+#: the host STROBE: the C++ one (ops/host_strobe.py) where g++ built it,
+#: else the pure-Python one; both give the same bytes
+Strobe128 = _native.NativeStrobe128 if _native.available() else PyStrobe128
 
 MERLIN_PROTOCOL_LABEL = b"Merlin v1.0"
 
@@ -45,7 +50,12 @@ class Transcript:
         self.strobe.ad(message, False)
 
     def append_messages(self, items) -> None:
-        """Run of append_message (label, message) pairs."""
+        """Run of append_message (label, message) pairs: one native call
+        when the C++ STROBE is in use."""
+        am = getattr(self.strobe, "append_messages", None)
+        if am is not None:
+            am(items)
+            return
         for label, message in items:
             self.append_message(label, message)
 
@@ -95,8 +105,13 @@ class TranscriptRngBuilder:
     def rekey_with_witness_batch(self, label: bytes, witnesses: bytes,
                                  wlen: int) -> "TranscriptRngBuilder":
         """rekey_with_witness_bytes over count fixed-size witnesses packed
-        in one buffer."""
-        for i in range(len(witnesses) // wlen):
+        in one buffer: one native call when the C++ STROBE is in use."""
+        count = len(witnesses) // wlen
+        rk = getattr(self.strobe, "rekey_witnesses", None)
+        if rk is not None:
+            rk(label, witnesses, wlen, count)
+            return self
+        for i in range(count):
             self.rekey_with_witness_bytes(
                 label, witnesses[i * wlen:(i + 1) * wlen])
         return self

@@ -1,6 +1,7 @@
 """Bulletproofs: generators, inner-product argument, range proofs, and the
-batched range verifier on the device."""
+batched range verifier and prover on the device."""
 
 from .generators import BulletproofGens, bulletproof_gens  # noqa: F401
 from .inner_product import InnerProductProof  # noqa: F401
 from .range_proof import RangeProof  # noqa: F401
+from .device_prove import DeviceRangeProver, get_device_range_prover  # noqa: F401

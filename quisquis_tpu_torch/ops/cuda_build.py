@@ -14,6 +14,7 @@ failed build or launch and carries on.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -52,6 +53,16 @@ _BUILD = {"log": "", "seconds": 0.0}
 
 def build_root() -> Path:
     return _PKG.parent / "build" / "quisquis_tpu_torch"
+
+
+@contextlib.contextmanager
+def build_lock():
+    """The file lock under which a process builds a library of the port
+    (the kernels here, the host STROBE in :mod:`.host_strobe`)."""
+    build_root().mkdir(parents=True, exist_ok=True)
+    with open(build_root() / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
 
 
 def _nvcc() -> str:
@@ -114,8 +125,7 @@ def load_library() -> ctypes.CDLL:
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / "libqq_cuda.so"
     log_path = out_dir / "build.log"
-    with open(build_root() / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with build_lock():
         if not so.exists():
             log_path.write_text(_compile(nvcc, out_dir, so))
     lib = ctypes.CDLL(str(so))

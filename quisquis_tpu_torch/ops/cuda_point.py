@@ -6,7 +6,8 @@ package's ``ops/pallas_point.py``.
 * :func:`msm_table`, :func:`msm_window_sums` and :func:`msm_tail` launch
   ``csrc/msm_table.cu``, ``csrc/msm_acc.cu`` and ``csrc/msm_tail.cu``, the
   three stages of a multiscalar multiplication; :func:`msm_rows` and
-  :func:`msm` pad their input and run the three.
+  :func:`msm` pad their input and run the three; :func:`msm_shared_rows`
+  runs rows over one :class:`SharedBasis`, whose table it builds once.
 
 For tensors on the CPU each calls its plain version in
 :mod:`quisquis_tpu_torch.ops.point` or :mod:`quisquis_tpu_torch.ops.msm_plain`;
@@ -154,3 +155,62 @@ def msm(nibbles: torch.Tensor, p: pt.ExtPoint) -> pt.ExtPoint:
     (coords [10])."""
     out = msm_rows(nibbles[None], pt.ExtPoint(*(c[None] for c in p)))
     return pt.ExtPoint(*(c[0] for c in out))
+
+
+# ---------------------------------------------------------------------------
+# rows over one shared basis (the provers' commitments)
+# ---------------------------------------------------------------------------
+
+class SharedBasis:
+    """A point set [k] that every row of :func:`msm_shared_rows` multiplies.
+
+    On CUDA its ``msm_table`` is built once, at first use, over the points
+    padded with identities to whole MSM_LANES tiles, and kept: a prover
+    holds its bases for its lifetime, so each prove reuses the tables. On
+    the CPU it keeps the plain version's comb the same way."""
+
+    def __init__(self, points: pt.ExtPoint):
+        self.points = points
+        self.k = points.x.shape[0]
+        self._table = None
+        self._comb = None
+
+    def comb(self) -> pt.ExtPoint:
+        """The plain version's comb (``msm_plain.shared_comb``)."""
+        if self._comb is None:
+            self._comb = qmsm.shared_comb(self.points)
+        return self._comb
+
+    def table(self) -> pt.ExtPoint:
+        """coords [16, 10, kp], kp = k padded to whole MSM_LANES tiles."""
+        if self._table is None:
+            pad = (-self.k) % qmsm.MSM_LANES
+            ident = pt.identity((pad,), self.points.device)
+            self._table = msm_table(pt.ExtPoint(*(torch.cat([c, e]).contiguous()
+                                                  for c, e in zip(self.points, ident))))
+        return self._table
+
+
+def msm_shared_rows(nibbles: torch.Tensor, basis: SharedBasis) -> pt.ExtPoint:
+    """One multiscalar multiplication per row over one shared basis:
+    nibbles int32 [R, k', 64], k' <= basis.k (missing digits are zeros) ->
+    points [R]. On CUDA the basis's cached table is tiled to the R rows by a
+    device copy and the msm_acc and msm_tail kernels run in rows mode; on
+    the CPU the plain version (``msm_plain.msm_shared_base`` on the basis's
+    cached comb)."""
+    rows, k = nibbles.shape[0], nibbles.shape[1]
+    if k < basis.k:
+        nibbles = torch.cat([nibbles, nibbles.new_zeros((rows, basis.k - k, pt.NWINDOWS))], dim=1)
+    elif k > basis.k:
+        raise ValueError(f"msm_shared_rows: {k} digits a row over a basis of {basis.k} points")
+    if _device_kind(nibbles, "msm_shared_rows") == "cpu":
+        return qmsm.msm_comb(nibbles, basis.comb())
+    if rows == 0:
+        return _empty_point((0, fe.NLIMBS), nibbles.device)
+    table = basis.table()
+    kpad = table.x.shape[-1]
+    nibbles = torch.cat([nibbles, nibbles.new_zeros((rows, kpad - basis.k, pt.NWINDOWS))], dim=1)
+    digits = nibbles.reshape(rows * kpad, pt.NWINDOWS).t().contiguous()
+    tiled = pt.ExtPoint(*(c[:, :, None, :].expand(16, fe.NLIMBS, rows, kpad)
+                          .reshape(16, fe.NLIMBS, rows * kpad) for c in table))
+    return msm_tail(msm_window_sums(digits, tiled, rows))

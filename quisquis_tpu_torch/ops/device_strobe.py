@@ -38,8 +38,14 @@ def _u32le(n: int) -> bytes:
     return struct.pack("<I", n)
 
 
-def snapshot_host_strobe(strobe: Strobe128) -> tuple:
-    """(state bytes, pos, pos_begin, cur_flags) of a host Strobe128."""
+def snapshot_host_strobe(strobe) -> tuple:
+    """(state bytes, pos, pos_begin, cur_flags) of a host STROBE: the
+    pure-Python Strobe128 or the C++ NativeStrobe128 (its 208-byte context,
+    csrc/host_strobe.cpp StrobeCtx)."""
+    ctx = getattr(strobe, "ctx", None)
+    if ctx is not None:
+        b = bytes(ctx)
+        return b[:200], b[200], b[201], b[202]
     return bytes(strobe.state), strobe.pos, strobe.pos_begin, strobe.cur_flags
 
 
@@ -59,12 +65,10 @@ class DeviceStrobe:
     """Batched STROBE-128 state; schedule static, byte values per lane."""
 
     def __init__(self, protocol_label: bytes, batch_shape=(), device="cuda"):
-        host = Strobe128(protocol_label)
-        init = _bytes_const(bytes(host.state), resolve_device(device))
+        state, self.pos, self.pos_begin, self.cur_flags = snapshot_host_strobe(
+            Strobe128(protocol_label))
+        init = _bytes_const(state, resolve_device(device))
         self.state = init.expand(tuple(batch_shape) + (200,)).contiguous()
-        self.pos = host.pos
-        self.pos_begin = host.pos_begin
-        self.cur_flags = host.cur_flags
 
     @classmethod
     def from_host_states(cls, states: torch.Tensor, pos: int, pos_begin: int,

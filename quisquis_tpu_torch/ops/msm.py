@@ -7,11 +7,13 @@ Three stages, each a CUDA kernel (``csrc/msm_table.cu``, ``csrc/msm_acc.cu``,
 :mod:`quisquis_tpu_torch.ops.msm_plain`, re-exported here:
 :func:`msm_table`, :func:`msm_window_sums`, :func:`msm_tail`.
 
-:func:`msm`, :func:`msm_rows` and :func:`pad_rows` are those of
-:mod:`quisquis_tpu_torch.ops.cuda_point`, which pads the rows and runs the
-three stages' wrappers: the kernels for CUDA tensors, the plain versions
-for CPU tensors, at every size (the JAX package's size thresholds were
-measured on a TPU and are not carried over). Imports go one way:
+:func:`msm`, :func:`msm_rows`, :func:`pad_rows`, :class:`SharedBasis` and
+:func:`msm_shared_rows` (rows over one shared basis, whose table is built
+once) are those of :mod:`quisquis_tpu_torch.ops.cuda_point`, which pads
+the rows and runs the three stages' wrappers: the kernels for CUDA
+tensors, the plain versions for CPU tensors, at every size (the JAX
+package's size thresholds were measured on a TPU and are not carried
+over). Imports go one way:
 this module -> ``cuda_point`` -> ``msm_plain``.
 """
 
@@ -22,26 +24,10 @@ import torch
 from ..device import resolve_device
 from . import exact as ex
 from . import point as pt
-from .cuda_point import msm, msm_rows, pad_rows  # noqa: F401  (callers take them from here)
-from .msm_plain import (MSM_LANES, msm_slices, msm_table, msm_tail,  # noqa: F401  (plain versions)
-                        msm_window_sums, select)
-
-
-def msm_shared_base(nibbles: torch.Tensor, points: pt.ExtPoint) -> pt.ExtPoint:
-    """Batched MSM against one shared point set, in plain torch: nibbles
-    [..., N, 64] over points [N] -> totals [...]. The table of the N points
-    is built once and shared by every batch element and window."""
-    table = pt.window_table(points)
-
-    def window_sum(w: int) -> pt.ExtPoint:
-        return pt.sum_points(select(table, nibbles[..., w]), axis=-1)
-
-    acc = window_sum(pt.NWINDOWS - 1)
-    for w in range(pt.NWINDOWS - 2, -1, -1):
-        for i in range(pt.WINDOW_BITS):
-            acc = pt.double(acc, need_t=(i == pt.WINDOW_BITS - 1))
-        acc = pt.add(acc, window_sum(w))
-    return acc
+from .cuda_point import (SharedBasis, msm, msm_rows, msm_shared_rows,  # noqa: F401
+                         pad_rows)  # (callers take them from here)
+from .msm_plain import (MSM_LANES, msm_shared_base, msm_slices,  # noqa: F401  (plain versions)
+                        msm_table, msm_tail, msm_window_sums, select)
 
 
 def msm_host(scalars, host_points, device="cuda") -> ex.Point:

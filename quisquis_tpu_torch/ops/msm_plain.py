@@ -96,3 +96,39 @@ def msm_tail(sums: pt.ExtPoint) -> pt.ExtPoint:
     out = pt.horner16(sums.x.shape[:1], sums.x.device, pt.NWINDOWS - 1,
                       lambda w: pt.CachedPoint(*(c[:, w] for c in totals)))
     return pt.ExtPoint(*(c.contiguous() for c in out))
+
+
+def shared_comb(points: pt.ExtPoint) -> pt.ExtPoint:
+    """The fixed-base comb of a shared point set: coords [64, N, 16, NL],
+    entry [w, i, d] = d 16^w P_i (252 doublings and one window table, once
+    per point set)."""
+    bases = [points]
+    for _ in range(pt.NWINDOWS - 1):
+        b = bases[-1]
+        for i in range(pt.WINDOW_BITS):
+            b = pt.double(b, need_t=(i == pt.WINDOW_BITS - 1))
+        bases.append(b)
+    n = points.x.shape[0]
+    flat = pt.ExtPoint(*(torch.cat(cs) for cs in zip(*bases)))      # [64 N, NL]
+    return pt.ExtPoint(*(c.reshape(pt.NWINDOWS, n, 16, fe.NLIMBS) for c in pt.window_table(flat)))
+
+
+def msm_comb(nibbles: torch.Tensor, comb: pt.ExtPoint) -> pt.ExtPoint:
+    """Rows over one shared point set from its comb: nibbles [..., N, 64],
+    comb [64, N, 16, NL] -> totals [...], one tree of additions over the
+    64 N selected entries of each row (no doubling chain)."""
+    sel = select(comb, nibbles.transpose(-1, -2))                    # [..., 64, N, NL]
+    lead = tuple(nibbles.shape[:-2])
+    return pt.sum_points(pt.ExtPoint(*(c.reshape(lead + (-1, fe.NLIMBS)) for c in sel)),
+                         axis=-1)
+
+
+def msm_shared_base(nibbles: torch.Tensor, points: pt.ExtPoint) -> pt.ExtPoint:
+    """Batched MSM against one shared point set: nibbles [..., N, 64] over
+    points [N] -> totals [...]. The plain version of
+    ``cuda_point.msm_shared_rows``, equal as points, not limb for limb: it
+    sums each row's entries of the set's comb (:func:`shared_comb`, which
+    ``SharedBasis`` keeps) in one tree, in place of the kernels' window
+    sums and Horner chain: eager torch on a CPU pays per operation, and a
+    chain of 315 point operations a call would set the CPU tests' time."""
+    return msm_comb(nibbles, shared_comb(points))

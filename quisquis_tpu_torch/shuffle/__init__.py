@@ -10,3 +10,4 @@ from .singlevalueproduct import SVPProof, SVPStatement  # noqa: F401
 from .multiexponential import MultiexpoProof  # noqa: F401
 from .ddh import DDHProof, DDHStatement  # noqa: F401
 from . import vectorutil, polynomial  # noqa: F401
+from .device_prove import DeviceShuffleProver, get_device_shuffle_prover  # noqa: F401

@@ -416,32 +416,68 @@ def _advance_shuffle_transcript(proof: ShuffleProof, verifier: Verifier,
 ShuffleProof.advance_transcript = _advance_shuffle_transcript
 
 
-def batch_create_shuffle_proofs(shuffles, rngs=None, backend="host"):
+def _auto_min_device(m: int) -> int:
+    """The fewest shuffles of side m that "auto" proves on the device: on
+    the H100 a device call costs about 2.8-3.5 s whatever its batch, the
+    host prover about 0.8 s a proof at m = 3 and 3.1-3.7 s at m = 8
+    (PERF.md §5)."""
+    return 2 if m >= 8 else 4
+
+
+#: the smallest device bucket of batch_create_shuffle_proofs
+_MIN_BUCKET = 2
+
+
+def batch_create_shuffle_proofs(shuffles, rngs=None, backend="auto", device="cuda"):
     """Prove many shuffles; returns [(proof, statement)] in order.
 
-    backend "host" (and "auto") loops ShuffleProof.create_shuffle_proof,
-    each with its own Prover/Transcript. The device-batched prover
-    (shuffle/device_prove.py of the JAX package) is not ported yet.
+    The shuffles are grouped by anonymity-set size. backend:
+      - "host": ShuffleProof.create_shuffle_proof per shuffle, each with its
+        own Prover and Transcript.
+      - "device-batched": each group is padded to a power-of-two bucket (at
+        least 2 lanes; pad lanes draw from a fresh SeededRng) and
+        proved in one call of ``shuffle.device_prove.DeviceShuffleProver``
+        on ``device``: byte-identical to the host prover under the same
+        per-lane rng streams.
+      - "auto": "device-batched" for a group of at least
+        ``_auto_min_device(m)`` shuffles, "host" for a smaller one. On the
+        H100 the device led at 16 shuffles for m = 3 and m = 8 and at 2 for
+        m = 8, and the host led at 2 for m = 3 (ROADMAP.md §C; PERF.md §5).
+        The JAX package's TPU crossover table is not carried over.
 
     Reference prove path: reference src/shuffle/shuffle.rs:361-532 (one
     proof at a time).
     """
-    shuffles = list(shuffles)
-    if backend == "device-batched":
-        raise NotImplementedError(
-            "batch_create_shuffle_proofs backend 'device-batched': the device "
-            "shuffle prover (shuffle/device_prove.py, ROADMAP A12) is not ported yet")
-    if backend not in ("host", "auto"):
-        raise ValueError(f"unknown backend {backend!r}")
-    if rngs is None:
-        rngs = [SeededRng() for _ in shuffles]
     from ..accounts.transcript import Transcript
 
-    out = []
-    for sh, rng in zip(shuffles, rngs):
-        prover = Prover(b"Shuffle", Transcript(b"ShuffleProof"), rng=rng)
-        out.append(ShuffleProof.create_shuffle_proof(prover, sh, rng=rng))
-    return out
+    shuffles = list(shuffles)
+    if rngs is None:
+        rngs = [SeededRng() for _ in shuffles]
+    if backend not in ("auto", "host", "device-batched"):
+        raise ValueError(f"unknown backend {backend!r}")
+    groups: dict = {}
+    for i, sh in enumerate(shuffles):
+        groups.setdefault(len(sh.inputs), []).append(i)
+    results: list = [None] * len(shuffles)
+    for n_acc, idxs in sorted(groups.items()):
+        m = math.isqrt(n_acc)
+        if backend == "host" or (backend == "auto" and len(idxs) < _auto_min_device(m)):
+            for i in idxs:
+                prover = Prover(b"Shuffle", Transcript(b"ShuffleProof"), rng=rngs[i])
+                results[i] = ShuffleProof.create_shuffle_proof(prover, shuffles[i], rng=rngs[i])
+            continue
+        if m * m != n_acc:
+            raise ValueError(f"anonymity set size {n_acc} is not square")
+        from .device_prove import get_device_shuffle_prover
+
+        B = max(_MIN_BUCKET, 1 << (len(idxs) - 1).bit_length())
+        pad = idxs + [idxs[0]] * (B - len(idxs))
+        dsp = get_device_shuffle_prover(m, B, device=device)
+        proved = dsp.prove([shuffles[i] for i in pad],
+                           [rngs[i] if k < len(idxs) else SeededRng() for k, i in enumerate(pad)])
+        for k, i in enumerate(idxs):
+            results[i] = proved[k]
+    return results
 
 
 def batch_verify_shuffle_proofs(entries, xpc_gens=None, backend="auto",

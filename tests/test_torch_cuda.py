@@ -252,3 +252,112 @@ def test_shuffle_path_shapes_equal_plain(dev):
     digits, flat = kp.pad_rows(nib_rk, p_rk)
     plain = qmsm.msm_tail(qmsm.msm_window_sums(digits, qmsm.msm_table(flat), rows))
     assert all(torch.equal(a, b) for a, b in zip(kp.msm_rows(nib_rk, p_rk), plain))
+
+
+def _range_lanes(tag: bytes, m: int, count: int):
+    from quisquis_tpu_torch.accounts.transcript import SeededRng
+    out = []
+    for i in range(count):
+        rng = SeededRng(seed=tag + b"%d" % i)
+        out.append(([int.from_bytes(rng.fill_bytes(1), "little") for _ in range(m)],
+                    [rng.random_scalar() for _ in range(m)], rng))
+    return out
+
+
+def test_range_prover_equals_host_bytes(dev):
+    """DeviceRangeProver(n = 8, m = 2, B = 4) on the card: byte-identical to
+    the host prover under the same streams, through the MSM and Keccak
+    kernels; the basis tables are built by the first prove only."""
+    from quisquis_tpu_torch.accounts.transcript import Transcript
+    from quisquis_tpu_torch.bulletproofs.device_prove import DeviceRangeProver
+    from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
+    n, m, B = 8, 2, 4
+    want = [RangeProof.prove_multiple(Transcript(b"RangeProof"), v, b, n, rng=r)
+            for v, b, r in _range_lanes(b"cuda-range", m, B)]
+    drp = DeviceRangeProver(n, m, B)
+    for _ in range(2):
+        before = dict(kp.LAUNCHES)
+        lanes = _range_lanes(b"cuda-range", m, B)
+        proofs, vlists = drp.prove(*(list(x) for x in zip(*lanes)))
+        ran = {k: kp.LAUNCHES[k] - before[k] for k in kp.LAUNCHES}
+        assert [p.to_bytes() for p in proofs] == [p.to_bytes() for p, _ in want]
+        assert vlists == [list(v) for _, v in want]
+        assert ran["msm_acc"] == ran["msm_tail"] == 2 + drp.k and ran["keccak_f1600"] > 0
+    assert ran["msm_table"] == 0  # the cached tables
+
+
+def test_shuffle_prover_equals_host(dev):
+    """DeviceShuffleProver(m = 3, B = 4) on the card: proofs and statements
+    equal the host prover's under the same streams."""
+    import copy
+    from quisquis_tpu_torch.accounts.accounts import Account
+    from quisquis_tpu_torch.accounts.prover import Prover
+    from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
+    from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey, RistrettoSecretKey
+    from quisquis_tpu_torch.shuffle.device_prove import DeviceShuffleProver
+    from quisquis_tpu_torch.shuffle.shuffle import Shuffle, ShuffleProof
+    m, B = 3, 4
+    rng = SeededRng(seed=b"cuda-shuffle-prove")
+    accounts = [Account.generate_account(RistrettoPublicKey.from_secret_key(
+        RistrettoSecretKey.random(rng), rng), rng)[0] for _ in range(m * m)]
+    shuffles, rngs, want = [], [], []
+    for i in range(B):
+        r = SeededRng(seed=b"cuda-shuffle-prove-%d" % i)
+        sh = Shuffle.input_shuffle(accounts, rng=r)
+        shuffles.append(sh)
+        rngs.append(copy.deepcopy(r))
+        want.append(ShuffleProof.create_shuffle_proof(
+            Prover(b"Shuffle", Transcript(b"ShuffleProof"), rng=r), sh, rng=r))
+    before = dict(kp.LAUNCHES)
+    got = DeviceShuffleProver(m, B).prove(shuffles, rngs)
+    ran = {k: kp.LAUNCHES[k] - before[k] for k in kp.LAUNCHES}
+    assert got == want
+    assert all(ran[k] > 0 for k in ("msm_table", "msm_acc", "msm_tail", "keccak_f1600"))
+
+
+@pytest.mark.parametrize("rows, k", [(16, 34), (8, 2), (24, 4), (96, 2050)])
+def test_shared_rows_equal_plain(dev, rows, k):
+    """msm_shared_rows at the provers' shapes: the range prover's V/A/S
+    rows at n = 8, m = 2, B = 4 (16 x 34), its T rows (8 x 2), the shuffle
+    prover's commitments at m = 3, B = 4 (24 x 4), and 96 rows over the
+    (64, 16) basis of 2,050 points. Against the plain version as points,
+    and each kernel stage against its plain stage limb for limb on the
+    tiled inputs."""
+    nib = torch.as_tensor(pt.scalars_to_nibbles(_scalars(rows * k)), device=dev)
+    nib = nib.reshape(rows, k, 64)
+    basis_nib = torch.as_tensor(pt.scalars_to_nibbles(_scalars(k + 9)[1:k + 1]), device=dev)
+    basis = kp.SharedBasis(kp.base_mul(basis_nib))
+    before = dict(kp.LAUNCHES)
+    got = kp.msm_shared_rows(nib, basis)
+    kp.msm_shared_rows(nib, basis)
+    ran = {k_: kp.LAUNCHES[k_] - before[k_] for k_ in kp.LAUNCHES}
+    assert ran["msm_table"] == 1 and ran["msm_acc"] == ran["msm_tail"] == 2
+    cpu_basis = kp.SharedBasis(pt.ExtPoint(*(c.cpu() for c in basis.points)))
+    if rows * k <= 1000:
+        want = kp.msm_shared_rows(nib.cpu(), cpu_basis)
+        assert (pt.compress_to_bytes(got) == pt.compress_to_bytes(want)).all()
+    table = basis.table()
+    kpad = table.x.shape[-1]
+    digits = torch.cat([nib, nib.new_zeros((rows, kpad - k, 64))], 1).reshape(-1, 64).t()
+    digits = digits.contiguous()
+    tiled = pt.ExtPoint(*(c[:, :, None, :].expand(16, fe.NLIMBS, rows, kpad)
+                          .reshape(16, fe.NLIMBS, rows * kpad) for c in table))
+    flat = pt.ExtPoint(*(torch.cat([c, e]) for c, e in
+                         zip(basis.points, pt.identity((kpad - k,), dev))))
+    assert all(torch.equal(a, b) for a, b in zip(table, qmsm.msm_table(flat)))
+    sums = kp.msm_window_sums(digits, tiled, rows)
+    part = slice(0, min(rows, 8))  # the plain stage on the first rows
+    n_part = (part.stop - part.start) * kpad
+    plain_sums = qmsm.msm_window_sums(digits[:, :n_part].contiguous(),
+                                      pt.ExtPoint(*(c[..., :n_part] for c in tiled)),
+                                      part.stop)
+    assert all(torch.equal(a[part], b) for a, b in zip(sums, plain_sums))
+    out = kp.msm_tail(sums)
+    assert all(torch.equal(a, b) for a, b in zip(out, got))
+    assert all(torch.equal(a[part], b) for a, b in zip(out, qmsm.msm_tail(
+        pt.ExtPoint(*(c[part] for c in sums)))))
+    # and against the exact backend on two rows
+    host_pts = pt.to_exact_batch(basis.points)
+    for r in (0, rows - 1):
+        s = [sum(int(d) << (4 * w) for w, d in enumerate(row)) for row in nib[r].tolist()]
+        assert bytes(pt.compress_to_bytes(got)[r]) == ex.ristretto_encode(ex.pt_msm(s, host_pts))

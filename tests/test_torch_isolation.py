@@ -103,6 +103,23 @@ def test_default_device_raises_without_gpu():
     checks.check([1], [ex.BASEPOINT], "iso")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         checks.verify(backend="device")
+    import types
+    from quisquis_tpu_torch.accounts.transcript import SeededRng
+    from quisquis_tpu_torch.bulletproofs import device_prove as dp
+    from quisquis_tpu_torch.shuffle import device_prove as sdp
+    from quisquis_tpu_torch.shuffle.shuffle import batch_create_shuffle_proofs
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        dp.DeviceRangeProver(8, 1, 2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        dp.get_device_range_prover(8, 1, 2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        RangeProof.prove_batch([(Transcript(b"RangeProof"), [1], [1], SeededRng(b"iso"))], 8)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        sdp.DeviceShuffleProver(2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        sdp.get_device_shuffle_prover(2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        batch_create_shuffle_proofs([types.SimpleNamespace(inputs=[None] * 4)] * 4)
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -84,9 +84,12 @@ def test_port_prover_bytes_equal_jax(honest):
     with pytest.raises(ValueError):
         RangeProof.prove_multiple(Transcript(b"RangeProof"), [256], [1], N_BITS, rng=rng)
     RangeProof.batch_verify([], N_BITS, backend="host")  # an empty batch holds
-    assert RangeProof.prove_batch([], N_BITS) == []
-    with pytest.raises(NotImplementedError, match="device_prove"):
-        RangeProof.prove_batch([], N_BITS, backend="device-batched")
+    assert RangeProof.prove_batch([], N_BITS, backend="host") == []
+    # the device-batched prover exists now (bulletproofs/device_prove.py):
+    # an empty batch proves nothing
+    assert RangeProof.prove_batch([], N_BITS, backend="device-batched", device="cpu") == []
+    with pytest.raises(ValueError, match="unknown backend"):
+        RangeProof.prove_batch([], N_BITS, backend="sharded")
 
 
 def test_accepts_honest_batch(drv, honest):

@@ -158,15 +158,20 @@ def test_batch_create_and_backends(pair):
     shuffles = [sh.Shuffle.input_shuffle(port[0][2], rng=SeededRng(seed=tag + bytes([i])))
                 for i in range(2)]
     out = sh.batch_create_shuffle_proofs(shuffles, [SeededRng(seed=tag + b"p%d" % i)
-                                                    for i in range(2)])
+                                                    for i in range(2)], backend="host")
     for shuffle, (proof, statement), i in zip(shuffles, out, range(2)):
         rng = SeededRng(seed=tag + b"p%d" % i)
         want = sh.ShuffleProof.create_shuffle_proof(
             Prover(b"Shuffle", Transcript(b"ShuffleProof"), rng=rng), shuffle, rng=rng)
         assert (proof, statement) == want
     assert metrics.timers["shuffle.prove"] and len(metrics.timers["shuffle.prove"]) == 4
-    with pytest.raises(NotImplementedError, match="A12"):
-        sh.batch_create_shuffle_proofs(shuffles, backend="device-batched")
+    # "auto" keeps a group of fewer than 4 small shuffles on the host prover
+    assert sh.batch_create_shuffle_proofs(
+        shuffles, [SeededRng(seed=tag + b"p%d" % i) for i in range(2)]) == out
+    # the device-batched prover exists now (shuffle/device_prove.py; its
+    # bytes are held in tests/test_torch_shuffle_prove*.py): an empty batch
+    # proves nothing
+    assert sh.batch_create_shuffle_proofs([], backend="device-batched", device="cpu") == []
     with pytest.raises(ValueError, match="unknown backend"):
         sh.batch_create_shuffle_proofs(shuffles, backend="tpu")
     with pytest.raises(NotImplementedError, match="A15"):
