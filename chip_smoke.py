@@ -7,10 +7,12 @@ Phases, each printed on its own line:
   1. require a CUDA GPU; print its name and power limit (nvidia-smi);
   2. build the six CUDA kernels from csrc/ (nvcc, at first use) and check
      that the host transcripts use the C++ STROBE (csrc/host_strobe.cpp,
-     built with g++ at the transcripts' first import); meanwhile four
-     worker processes make four aggregated range proofs (n = 64, m = 16)
-     with the port's host prover, timed, and check each with the host
-     verifier; they are done before phase 6;
+     built with g++ at the transcripts' first import) and that ops/exact.py
+     does the host points on the C++ curve (csrc/host_curve.cpp, built with
+     g++ at the package's import); meanwhile four worker processes make
+     four aggregated range proofs (n = 64, m = 16) with the port's host
+     prover, timed (the generators made first), and check each with the
+     host verifier; they are done before phase 6;
   3. hold each kernel against its plain PyTorch version on the card at
      B = 256, limb for limb (edge scalars included: integers up to
      2^256 - 1, for scalar_mul also the identity and points with
@@ -89,7 +91,24 @@ Phases, each printed on its own line:
      batch_create_shuffle_proofs("device-batched") on 5 shuffles runs as a
      bucket of 8. The kernels on the prover's largest rows call and Keccak
      on its states against their plain versions; times as in phase 12;
- 14. one JSON line per contract with every kernel's numbers, then the
+ 14. transaction building at benchmarks.py config 6e's width: 16
+     transactions of 4 senders and 4 receivers over 16 accounts by
+     batch_create_transactions, their range proofs as one
+     DeviceRangeProver(64, 8, 16) call ("device-batched") and on the host;
+     the two equal byte for byte and every transaction verifies; the four
+     MSM and Keccak kernels against their plain versions at that prover's
+     shapes; times: the median of 3 builds by each range backend, the range
+     proving apart, launches, one profiled build;
+ 15. batch verification: 32 transactions of config 6/6b (1 + 1 over 9
+     accounts) and 4 over 64 accounts by batch_verify_transactions,
+     accepted by "device-batched" (the collector's shuffle groups by shape
+     and frame, the range groups, the deferred sigma MSM on the card) and
+     by "host"; each of six tamperings of one transaction rejected by both
+     (two of them only the device verifiers read: the host part accepts);
+     the five kernels against their plain versions at the verifiers'
+     shapes; times: the median of 3 calls of each backend on this batch and
+     on phase 14's, launches, one profiled call;
+ 16. one JSON line per contract with every kernel's numbers, then the
      final status line.
 
 Any failed check raises, and the script exits non-zero. It also exits
@@ -106,6 +125,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import get_context
 
@@ -128,6 +148,10 @@ SIGMA_NS = (64, 1_024)                        # config 5's anonymity set; phase 
 SIGMA_SAMPLE = 64                             # rows held against the host at n = 1,024
 SHUFFLE_M, SHUFFLE_B = 8, 16                  # 64-account shuffles, the throughput batch
 SHUFFLE_M_SMALL = 3                           # the reference's 3x3 anonymity set
+TX_BUILD, TX_SENDERS, TX_ACCOUNTS = 16, 4, 16  # benchmarks.py config 6e
+TX_VERIFY, TX_VERIFY_ACCOUNTS = 32, 9          # config 6/6b: the reference's 9-account set
+TX_VERIFY_WIDE, TX_WIDE_ACCOUNTS = 4, 64       # and a few at 64 accounts
+TX_REPS = 3                                    # timed calls of each transaction path
 FEW_TERMS = 8                                 # a sigma-sized deferred check
 SHUFFLE_KERNELS = ("scalar_mul", "msm_table", "msm_acc", "msm_tail", "keccak_f1600")
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
@@ -201,6 +225,283 @@ def shuffle_tampered(entries, what: str, lane: int):
         ins, outs = outs, ins
     out[lane] = (p, s, ins, outs)
     return out
+
+
+def _patch_timer(cls, name: str, spent: list, sync):
+    """Wrap the static method cls.name so that each call appends its host
+    seconds to `spent`; returns the function that restores it."""
+    raw = cls.__dict__[name]
+    real = raw.__func__
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        out = real(*a, **k)
+        sync()
+        spent.append(time.perf_counter() - t)
+        return out
+    setattr(cls, name, staticmethod(timed))
+    return lambda: setattr(cls, name, raw)
+
+
+def phase_tx_build(h, n_tx=TX_BUILD, n_senders=TX_SENDERS, n_accounts=TX_ACCOUNTS,
+                   reps=TX_REPS):
+    """Transaction building at config 6e's width: batch_create_transactions
+    with its range proofs proved on the device ("device-batched": one
+    DeviceRangeProver call of (range bits, 2 x n_senders, n_tx)) and on the
+    host, byte for byte equal, every transaction verified; the range
+    prover's kernels against their plain versions at its shapes; times.
+    `h`: the run's helpers (see phases). Returns the device-built pairs."""
+    from quisquis_tpu_torch.bulletproofs import device_prove as rdp
+    from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
+    from quisquis_tpu_torch.config import DEFAULT
+    from quisquis_tpu_torch.ops import cuda_build as cb
+    from quisquis_tpu_torch.ops import cuda_keccak as kk
+    from quisquis_tpu_torch.ops import cuda_point as kp
+    from quisquis_tpu_torch.ops import device_keccak as dk
+    from quisquis_tpu_torch.ops import msm as qmsm
+    from quisquis_tpu_torch.ops import point as pt
+    from quisquis_tpu_torch.transaction import (batch_create_transactions,
+                                                batch_verify_transactions, verify_transaction)
+    from quisquis_tpu_torch.transaction.workloads import benchmark_requests, comparable
+
+    m, n_bits = 2 * n_senders, DEFAULT.range_bits
+    phase = h.phase
+
+    def build(reqs, backend):
+        return batch_create_transactions(reqs, range_backend=backend, device=h.dev)
+
+    rdp._PROVER_CACHE.clear()
+    reqs = benchmark_requests(b"chip-smoke-6e", n_tx, n_senders, n_accounts)
+    h.sync()
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    out_dev = build(reqs, "device-batched")
+    first_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cb.LAUNCHES.items() if v}
+    check(set(launches) == set(SLICE2), f"batch_create_transactions launches {launches}")
+    check([k[:3] for k in rdp._PROVER_CACHE] == [(n_bits, m, n_tx)],
+          f"one DeviceRangeProver call of ({n_bits}, {m}, {n_tx}): {list(rdp._PROVER_CACHE)}")
+    out_host = build(benchmark_requests(b"chip-smoke-6e", n_tx, n_senders, n_accounts), "host")
+    check(comparable(out_dev) == comparable(out_host),
+          "device-batched transactions == host-built ones, byte for byte")
+    for tx, proof in out_dev:
+        check(len(proof.range_proofs) == 1, f"one aggregated range proof (m={m}) a transaction")
+        verify_transaction(tx, proof, backend="host")   # raises unless it verifies
+    batch_verify_transactions(out_dev, backend="host", seed=b"chip-smoke-6e-check")
+    h.say(phase, f"batch_create_transactions of {n_tx} transactions ({n_senders} senders and "
+                 f"{n_senders} receivers over {n_accounts} accounts, benchmarks.py config 6e): "
+                 f"device-batched (one DeviceRangeProver({n_bits}, {m}, {n_tx}) call; first "
+                 f"call, tables built, {first_s:.2f} s, launches {launches}) == host-built, byte "
+                 f"for byte; every transaction verifies [{h.card}]")
+
+    # the kernels at this prover's shapes: one more build records their inputs
+    drp = rdp._PROVER_CACHE[next(iter(rdp._PROVER_CACHE))]
+    seen, restore = h.keep_calls([(kp, "msm_window_sums", "acc"), (kk, "f1600", "keccak")])
+    try:
+        build(benchmark_requests(b"chip-smoke-6e", n_tx, n_senders, n_accounts),
+              "device-batched")
+    finally:
+        restore()
+    acc_calls = seen["acc"]
+    check(len(acc_calls) == 2 + drp.k, f"{len(acc_calls)} msm_acc calls a build")
+    basis = drp._basis
+    kpad = basis.table().x.shape[-1]
+    flat_b = pt.ExtPoint(*(torch.cat([c, e]) for c, e in
+                           zip(basis.points, pt.identity((kpad - basis.k,), h.dev))))
+    h.same(basis.table(), qmsm.msm_table(flat_b), "msm_table",
+           f"the transaction range prover's cached basis ({kpad} points)")
+    vas, t_call, ipp0 = acc_calls[0], acc_calls[1], acc_calls[2]
+    for call, what in ((vas, "V/A/S"), (t_call, "T"), (ipp0, "inner-product round")):
+        h.rows_against_plain(*call, f"the transaction range prover's {what} rows "
+                                    f"({call[2]} x {call[0].shape[1] // call[2]})")
+    states = torch.cat([st for (st,) in seen["keccak"]])
+    check({st.shape[0] for (st,) in seen["keccak"]} == {n_tx}, f"prover states [{n_tx}, 200]")
+    check(torch.equal(kk.f1600(states), dk.f1600_plain(states)),
+          "keccak_f1600 == plain on every transaction range prover state of a build")
+    h.say(phase, f"kernels == plain versions at the transaction range prover's shapes: "
+                 f"msm_table on its basis ({basis.k} points padded to {kpad}), msm_acc / "
+                 f"msm_tail on its V/A/S ({vas[2]} rows), T ({t_call[2]}) and inner-product "
+                 f"({ipp0[2]}) rows, keccak_f1600 on {len(seen['keccak'])} states; max_abs_err "
+                 f"{ {k: h.err[k] for k in SLICE2} }")
+
+    # times: the median of `reps` builds by each range backend, the range
+    # proving part apart (each build's requests made before its timing)
+    times = {}
+    for backend in ("device-batched", "host"):
+        spent: list = []
+        args = [benchmark_requests(b"chip-smoke-6e", n_tx, n_senders, n_accounts)
+                for _ in range(reps)]
+        restore = _patch_timer(RangeProof, "prove_batch", spent, h.sync)
+        try:
+            if backend == "device-batched":
+                cb.reset_launches()
+            times[backend] = h.median_ms(lambda: build(args.pop(), backend), reps=reps)
+            if backend == "device-batched":
+                launches = {k: v // reps for k, v in cb.LAUNCHES.items() if v}
+        finally:
+            restore()
+        times[backend + " range"] = statistics.median(spent) * 1e3
+    med, lo, hi = times["device-batched"]
+    hmed, hlo, hhi = times["host"]
+    h.say(phase, f"batch_create_transactions of {n_tx} transactions, host clock, {reps} calls: "
+                 f"device-batched median {med:.1f} ms (min {lo:.1f}, max {hi:.1f}) = "
+                 f"{n_tx / med * 1e3:.2f} tx/s, of it the range proving (prove_batch) "
+                 f"{times['device-batched range']:.1f} ms; launches a build {launches}; host "
+                 f"range backend median {hmed:.1f} ms (min {hlo:.1f}, max {hhi:.1f}) = "
+                 f"{n_tx / hmed * 1e3:.2f} tx/s, of it the range proving "
+                 f"{times['host range']:.1f} ms ({times['host range'] / n_tx:.1f} ms a proof) "
+                 f"[{h.card}]")
+    args = benchmark_requests(b"chip-smoke-6e", n_tx, n_senders, n_accounts)
+    h.say(phase, h.profile(lambda: build(args, "device-batched"),
+                           "batch_create_transactions (device-batched)", SLICE2))
+    return out_dev
+
+
+#: one-transaction tamperings of a verification batch; the last two only the
+#: device verifiers see (the host's advance-only replay appends nothing of
+#: them before its last challenge check)
+TX_TAMPERS = ("range proof t_x byte", "output shuffle c_B byte", "sigma response",
+              "delta update", "range proof inner-product a", "output shuffle E_k_0")
+TX_DEVICE_ONLY = TX_TAMPERS[4:]
+
+
+def tx_tampered(items, what: str, i: int):
+    """items with one tampering in transaction i."""
+    from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
+    from quisquis_tpu_torch.transaction import Transaction
+    rep = dataclasses.replace
+    out = list(items)
+    tx, proof = out[i]
+    if what.startswith("range proof"):
+        blob = bytearray(proof.range_proofs[0].to_bytes())
+        blob[130 if what == "range proof t_x byte" else -64] ^= 1
+        proof = rep(proof, range_proofs=[RangeProof.from_bytes(bytes(blob))])
+    elif what == "output shuffle c_B byte":
+        sp = proof.output_shuffle_proof
+        proof = rep(proof, output_shuffle_proof=rep(sp, c_B=[_flip(sp.c_B[0])] + sp.c_B[1:]))
+    elif what == "output shuffle E_k_0":
+        sp = proof.output_shuffle_proof
+        me = sp.multi_exponen_commit
+        me = rep(me, E_k_0=[_flip(me.E_k_0[0])] + me.E_k_0[1:])
+        proof = rep(proof, output_shuffle_proof=rep(sp, multi_exponen_commit=me))
+    elif what == "sigma response":
+        zv, zr1, zr2, x = proof.delta_dleq
+        proof = rep(proof, delta_dleq=([zv[0] + 1] + zv[1:], zr1, zr2, x))
+    else:   # the last account's delta is not applied
+        upd = list(tx.account_updated_delta_vector)
+        upd[-1] = tx.updated_account_vector[-1]
+        tx = Transaction(tx.input_account_vector, tx.updated_account_vector,
+                         tx.account_delta_vector, tx.account_epsilon_vector, upd,
+                         tx.output_account_vector)
+    out[i] = (tx, proof)
+    return out
+
+
+def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
+                    n_wide=TX_VERIFY_WIDE, wide_accounts=TX_WIDE_ACCOUNTS, reps=TX_REPS):
+    """Batch verification: n_tx transactions of config 6/6b (1 sender and 1
+    receiver over n_accounts) and n_wide over wide_accounts, accepted by
+    batch_verify_transactions on "device-batched" and on "host"; each
+    tampering of TX_TAMPERS in one transaction rejected by both; the
+    kernels against their plain versions at the device verifiers' shapes;
+    times of both backends on this batch and on `built` (config 6e's)."""
+    from quisquis_tpu_torch.ops import cuda_build as cb
+    from quisquis_tpu_torch.ops import cuda_keccak as kk
+    from quisquis_tpu_torch.ops import cuda_point as kp
+    from quisquis_tpu_torch.ops import device_keccak as dk
+    from quisquis_tpu_torch.ops import msm as qmsm
+    from quisquis_tpu_torch.ops import point as pt
+    from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks, DeviceBatchCollector
+    from quisquis_tpu_torch.transaction import (batch_create_transactions,
+                                                batch_verify_transactions, verify_transaction)
+    from quisquis_tpu_torch.transaction.workloads import benchmark_requests
+
+    phase = h.phase
+    t0 = time.perf_counter()
+    items = batch_create_transactions(
+        benchmark_requests(b"chip-smoke-6b", n_tx, 1, n_accounts)
+        + benchmark_requests(b"chip-smoke-wide", n_wide, 1, wide_accounts), range_backend="host")
+    build_s = time.perf_counter() - t0
+
+    def verify(batch, backend):
+        batch_verify_transactions(batch, backend=backend, seed=b"chip-smoke-tx-verify",
+                                  device=h.dev)
+
+    h.sync()
+    cb.reset_launches()
+    verify(items, "device-batched")   # raises unless every transaction verifies
+    launches = {k: v for k, v in cb.LAUNCHES.items() if v}
+    check(set(launches) == set(SHUFFLE_KERNELS), f"device-batched verify launches {launches}")
+    verify(items, "host")
+    rejected = []
+    at = min(5, len(items) - 1)
+    for what in TX_TAMPERS:
+        bad = tx_tampered(items, what, at)
+        for backend in ("device-batched", "host"):
+            try:
+                verify(bad, backend)
+            except ValueError:
+                continue
+            raise RuntimeError(f"check failed: {backend} accepted a batch with a tampered {what}")
+        if what in TX_DEVICE_ONLY:   # the host part accepts; the device rejects
+            collector, defer = DeviceBatchCollector(), DeferredPointChecks(b"chip-smoke-tx")
+            verify_transaction(*bad[at], defer=defer, collector=collector)
+            defer.verify(backend="host")
+            try:
+                collector.verify(device=h.dev)
+            except ValueError:
+                pass
+            else:
+                raise RuntimeError(f"check failed: the device verifiers accepted {what}")
+        rejected.append(what)
+    h.say(phase, f"batch_verify_transactions of {n_tx} transactions over {n_accounts} accounts "
+                 f"and {n_wide} over {wide_accounts} (built by the host in {build_s:.1f} s): "
+                 f"accepted by device-batched (launches {launches}) and host; one transaction "
+                 f"with a tampered {', '.join(rejected)} rejected by both each time (the last "
+                 f"{len(TX_DEVICE_ONLY)} by the device verifiers, the host part accepting) "
+                 f"[{h.card}]")
+
+    # the kernels at the device verifiers' shapes: one more verify records
+    # their inputs (the largest call of each kind is held to the plain one)
+    seen, restore = h.keep_calls([(kp, "scalar_mul", "sm"), (qmsm, "msm_rows", "rows"),
+                                  (qmsm, "msm", "msm"), (kk, "f1600", "keccak")])
+    try:
+        verify(items, "device-batched")
+    finally:
+        restore()
+    nib_p, pts_p = max(seen["sm"], key=lambda a: a[0].shape[0])
+    h.same(kp.scalar_mul(nib_p, pts_p), pt.scalar_mul(nib_p, pts_p), "scalar_mul",
+           f"the transaction shuffle verifier's {nib_p.shape[0]} product lanes")
+    nib_r, pts_r = max(seen["rows"], key=lambda a: a[0].shape[0] * a[0].shape[1])
+    h.stages_against_plain(nib_r, pts_r, f"the transaction shuffle verifier's rows "
+                                         f"{tuple(nib_r.shape[:2])}")
+    nib_f, pts_f = max(seen["msm"], key=lambda a: a[0].shape[0])
+    h.stages_against_plain(nib_f[None], pt.ExtPoint(*(c[None] for c in pts_f)),
+                           f"the transaction verifiers' largest MSM ({nib_f.shape[0]} points)")
+    for (st,) in seen["keccak"]:
+        check(torch.equal(kk.f1600(st), dk.f1600_plain(st)),
+              "keccak_f1600 == plain on a transaction verifier state")
+    h.say(phase, f"kernels == plain versions at the transaction verifiers' shapes: scalar_mul "
+                 f"({len(seen['sm'])} calls, the largest {nib_p.shape[0]} lanes), msm_table / "
+                 f"msm_acc / msm_tail on the largest rows call {tuple(nib_r.shape[:2])} and the "
+                 f"largest MSM ({nib_f.shape[0]} points; {len(seen['msm'])} calls), keccak_f1600 "
+                 f"on {len(seen['keccak'])} states; max_abs_err "
+                 f"{ {k: h.err[k] for k in SHUFFLE_KERNELS} }")
+
+    for label, batch in ((f"{len(items)} transactions (6/6b and {wide_accounts}-account)", items),
+                         (f"config 6e's {len(built)} transactions", built)):
+        parts = []
+        for backend in ("device-batched", "host"):
+            cb.reset_launches()
+            med, lo, hi = h.median_ms(lambda: verify(batch, backend), reps=reps)
+            n_l = {k: v // reps for k, v in cb.LAUNCHES.items() if v}
+            parts.append(f"{backend} median {med:.1f} ms (min {lo:.1f}, max {hi:.1f}) = "
+                         f"{len(batch) / med * 1e3:.1f} tx/s"
+                         + (f", launches a call {n_l}" if n_l else ""))
+        h.say(phase, f"batch_verify_transactions of {label}, host clock, {reps} calls: "
+                     + "; ".join(parts) + f" [{h.card}]")
+    h.say(phase, h.profile(lambda: verify(items, "device-batched"),
+                           "batch_verify_transactions (device-batched)", SHUFFLE_KERNELS))
 
 
 def check(cond, what: str) -> None:
@@ -299,10 +600,12 @@ def prove_and_check(i: int):
     after the proof and the host prove time in seconds."""
     sys.path.insert(0, REPO)
     from quisquis_tpu_torch.accounts.transcript import Transcript
+    from quisquis_tpu_torch.bulletproofs.generators import bulletproof_gens
     from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
     from quisquis_tpu_torch.ops.device_strobe import snapshot_host_strobe
     values, blindings, prng = range_lane(i)
     t = Transcript(b"RangeProof")
+    bulletproof_gens(RANGE_N, RANGE_M)   # the generators (pure Python) are not the proof's time
     t0 = time.perf_counter()
     proof, commitments = RangeProof.prove_multiple(t, values, blindings, RANGE_N, rng=prng)
     prove_s = time.perf_counter() - t0
@@ -384,7 +687,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     import quisquis_tpu_torch  # noqa: F401  (fails here, before any process starts, outside a checkout)
-    # the host provers are pure Python and slow: they run in worker
+    # the host provers (the C++ curve and STROBE under Python) run in worker
     # processes, the range proofs beside phases 2-5 (waited for before phase
     # 6), the sigma and shuffle proofs after phase 9's timed calls
     with ProcessPoolExecutor(N_WORKERS, mp_context=get_context("spawn")) as pool:
@@ -403,7 +706,7 @@ def phases(pool) -> int:
     from quisquis_tpu_torch.bulletproofs import device_prove as rdp
     from quisquis_tpu_torch.bulletproofs.device_verify import DeviceRangeVerifier
     from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
-    from quisquis_tpu_torch.kernel_ab import graph_ms
+    from quisquis_tpu_torch.kernel_ab import graph_ms, median_ms
     from quisquis_tpu_torch.ops import batch as qb
     from quisquis_tpu_torch.ops import cuda_build as cb
     from quisquis_tpu_torch.ops import cuda_keccak as kk
@@ -411,6 +714,7 @@ def phases(pool) -> int:
     from quisquis_tpu_torch.ops import device_keccak as dk
     from quisquis_tpu_torch.ops import exact as ex
     from quisquis_tpu_torch.ops import field as fe
+    from quisquis_tpu_torch.ops import host_curve as hc
     from quisquis_tpu_torch.ops import host_strobe as hs
     from quisquis_tpu_torch.ops import keccak as host_keccak
     from quisquis_tpu_torch.ops import msm as qmsm
@@ -449,10 +753,17 @@ def phases(pool) -> int:
     check(hs.available(), f"the C++ host STROBE builds and loads: {hs.build_error()}")
     check(transcript_mod.Strobe128 is hs.NativeStrobe128,
           "the host transcripts use the C++ STROBE")
+    check(hc.available(), f"the C++ host curve builds and loads: {hc.build_error()}")
+    check(ex.NATIVE_CURVE and ex.pt_msm is not ex.pt_msm_py,
+          "ops/exact.py dispatches the host points to the C++ curve")
     say(2, f"C++ host STROBE (csrc/host_strobe.cpp): "
            f"{'compiled by g++' if hs.compiled() else 'an earlier build loaded'} in "
            f"{hs.build_seconds():.3f} s at the first import of the transcripts; the host "
            f"transcripts use it")
+    say(2, f"C++ host curve (csrc/host_curve.cpp): "
+           f"{'compiled by g++' if hc.compiled() else 'an earlier build loaded'} in "
+           f"{hc.build_seconds():.3f} s at the package's import; ops/exact.py dispatches the "
+           f"host point arithmetic to it")
     for line in cb.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
@@ -1332,17 +1643,6 @@ def phases(pool) -> int:
                 setattr(mod, name, real)
         return seen_, restore
 
-    def median_ms(fn, reps=PROVE_REPS):
-        """Median host-clock ms of fn() over reps calls (each synchronised)."""
-        walls_ = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls_.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(walls_), min(walls_), max(walls_)
-
     # -- phase 12: range proving at full width -------------------------------
     RB = RANGE_PROVE_BATCH
 
@@ -1464,7 +1764,7 @@ def phases(pool) -> int:
     say(12, f"the kernels' device time a range prove: {per_prove:.3f} ms (launches "
             f"{rp_launches}) [{card}]")
     args = [range_args() for _ in range(PROVE_REPS)]
-    med, lo, hi = median_ms(lambda: drp.prove(*args.pop()))
+    med, lo, hi = median_ms(lambda: drp.prove(*args.pop()), PROVE_REPS)
     t = time.perf_counter()
     packed = drp._pack(*range_args(), None)
     pack_ms = (time.perf_counter() - t) * 1e3
@@ -1482,7 +1782,7 @@ def phases(pool) -> int:
             f"packing (the host prover's {2 * drp.nm + 4} draws a lane) {pack_ms:.1f} ms, "
             f"program from upload to fetch {run_ms:.1f} ms; at batch {RANGE_PROVE_SMALL}: "
             f"median of 3 {med2:.1f} ms = {med2 / RANGE_PROVE_SMALL:.1f} ms a proof; the host "
-            f"prover (phase 2's workers, pure-Python points, C++ transcript): {host_ms:.1f} ms "
+            f"prover (phase 2's workers, C++ curve and transcript): {host_ms:.1f} ms "
             f"a proof [{card}]")
     args = range_args()
     say(12, profile_line(lambda: drp.prove(*args), card, "DeviceRangeProver.prove", SLICE2))
@@ -1570,7 +1870,7 @@ def phases(pool) -> int:
             f"{time_once(lambda: dk.f1600_plain(st_k))[1]:.2f} ms, bound "
             f"{bound(b8 * KECCAK_OPS_PER_STATE, b8 * 400)[0]:.5f} ms [{card}]")
     args = [shuffle_args(sh8) for _ in range(PROVE_REPS)]
-    med, lo, hi = median_ms(lambda: dsp.prove(*args.pop()))
+    med, lo, hi = median_ms(lambda: dsp.prove(*args.pop()), PROVE_REPS)
     t = time.perf_counter()
     packed = dsp._pack(*shuffle_args(sh8))
     pack_ms = (time.perf_counter() - t) * 1e3
@@ -1601,7 +1901,18 @@ def phases(pool) -> int:
     args = shuffle_args(sh8)
     say(13, profile_line(lambda: dsp.prove(*args), card, "DeviceShuffleProver.prove", SLICE2))
 
-    # -- phase 14 -----------------------------------------------------------
+    # -- phases 14-15: transactions, built and batch-verified ----------------
+    helpers = types.SimpleNamespace(
+        dev=dev, card=card, err=err, same=same, stages_against_plain=stages_against_plain,
+        rows_against_plain=rows_against_plain, keep_calls=keep_calls, median_ms=median_ms,
+        sync=torch.cuda.synchronize, say=say,
+        profile=lambda fn, what, names: profile_line(fn, card, what, names))
+    helpers.phase = 14
+    built = phase_tx_build(helpers)
+    helpers.phase = 15
+    phase_tx_verify(helpers, built)
+
+    # -- phase 16 -----------------------------------------------------------
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,20 +7,26 @@ Laid out like the JAX package it is ported from:
                 wrappers (cuda_point, cuda_keccak) and their loader
                 (cuda_build), batched commitments, and its own copy of the
                 exact host backend, Keccak and STROBE (pure Python, and the
-                C++ STROBE of host_strobe)
+                C++ curve and STROBE of host_curve and host_strobe)
   primitives/   keys, ElGamal commitments and Pedersen generators (host objects)
   accounts/     Account, Merlin transcripts, device-batched account updates,
                 host sigma prover and verifier, the device sigma verifiers
-                (device_verifier), deferred point checks (deferred)
-  bulletproofs/ host range prover and verifier; the device-batched range
-                verifier (device_verify) and prover (device_prove)
+                (device_verifier), deferred point checks (deferred), the
+                R1CS range-proof gadgets (rangeproof)
+  bulletproofs/ host range prover and verifier, R1CS proofs (r1cs); the
+                device-batched range verifier (device_verify) and prover
+                (device_prove)
   shuffle/      host shuffle prover and verifier; the device-batched shuffle
                 verifier (device_verify) and prover (device_prove)
+  transaction/  whole transactions: built on the host with their range proofs
+                batched on the device (batch_create_transactions), verified
+                with their embedded proofs batched on the device
+                (batch_verify_transactions)
   utils/        metrics and timers
   config.py     protocol settings (anonymity-set size, range bits)
   csrc/         the CUDA C++ sources, built with nvcc at first use, and the
-                host STROBE (host_strobe.cpp, built with g++ at first use;
-                ops/host_strobe.py)
+                host curve and STROBE (host_curve.cpp, host_strobe.cpp, built
+                with g++ at first use; ops/host_curve.py, ops/host_strobe.py)
 
 It imports torch and numpy, never jax, and nothing of quisquis_tpu. Public
 entry points take ``device=`` (default ``"cuda"``) and raise when no GPU is
@@ -30,10 +36,28 @@ present unless the caller asks for ``"cpu"``.
 from .accounts.accounts import Account
 from .primitives.elgamal import ElGamalCommitment
 from .primitives.keys import RistrettoPublicKey, RistrettoSecretKey
+from .transaction import (Receiver, Sender, Transaction, TransactionProof,
+                          batch_create_transactions, batch_verify_transactions,
+                          create_transaction, verify_transaction)
 
 __all__ = [
     "Account",
     "ElGamalCommitment",
+    "Receiver",
     "RistrettoPublicKey",
     "RistrettoSecretKey",
+    "Sender",
+    "Transaction",
+    "TransactionProof",
+    "batch_create_transactions",
+    "batch_verify_transactions",
+    "create_transaction",
+    "verify_transaction",
 ]
+
+# the host points on the C++ curve library (ops/host_curve.py), where g++
+# builds it, now that the package has loaded
+from .ops.exact import _try_enable_native as _enable_native_curve  # noqa: E402
+
+_enable_native_curve()
+del _enable_native_curve

@@ -39,10 +39,20 @@ from ..ops import point as pt
 
 L = ex.L
 
+#: the fewest coalesced terms that DeferredPointChecks.verify's "auto"
+#: sends to the device (see its docstring)
+AUTO_DEVICE_MIN_TERMS = 256
+
 
 def _pt_wire(p: ex.Point) -> bytes:
-    """128-byte extended-point wire form (4 x 32-byte LE coordinates): the
-    point's (already reduced mod p) coordinates."""
+    """128-byte extended-point wire form (4 x 32-byte LE coordinates).
+
+    Points made by the C++ curve library carry a cached `.wire`; pure
+    tuples serialize their (already reduced mod p) coordinates.
+    """
+    w = getattr(p, "wire", None)
+    if w is not None:
+        return w
     x, y, z, t = p
     return (x.to_bytes(32, "little") + y.to_bytes(32, "little")
             + z.to_bytes(32, "little") + t.to_bytes(32, "little"))
@@ -193,20 +203,34 @@ class DeferredPointChecks:
         sbuf, pbuf, _ = self.export_wire()
         return sbuf, pbuf
 
-    def verify(self, backend: str = "device", device="cuda") -> None:
+    def verify(self, backend: str = "auto", device="cuda") -> None:
         """Evaluate the combined MSM; raise ValueError if non-identity.
 
-        backend: "device" (the MSM kernels on ``device``) or "host" (the
-        exact backend's Pippenger). On the H100 the device MSM beat the
-        pure-Python host one about 30x at 594 terms (one m = 8 shuffle
-        proof) and 60x at 9,279 (sixteen); PERF.md §5 has the readings,
-        few-term ones included. The JAX package's "auto" crossover was
-        measured on a TPU and is not carried over. "sharded" waits for
-        multi-GPU support.
+        backend: "device" (the MSM kernels on ``device``), "host" (the
+        exact backend's Pippenger, on the C++ curve where g++ built it) or
+        "auto": "device" from AUTO_DEVICE_MIN_TERMS coalesced terms, else
+        "host" (``device`` is resolved first either way, so the default
+        raises without a GPU). On the H100 (host / device ms, two runs) the
+        C++ host led at 8 terms (0.27-0.34 / 2.50-2.59), 64 (1.74-1.96 /
+        2.73-4.56) and 128 (2.18-2.75 / 2.55-3.43), the device narrowly at
+        192 (3.16-3.58 / 2.90-3.00) and from 256 (3.86-4.34 / 2.88-3.41)
+        on, and on the accumulators that verify_transaction collects from
+        one transaction: 559 terms (1 + 1 values over 9 accounts;
+        7.57-9.69 / 4.70-6.30), 819 (2 + 2 over 9; 10.00-14.65 /
+        4.34-6.96), 1,449 (1 + 1 over 64; 12.60-14.73 / 5.81-5.89) and
+        1,467 (4 + 4 over 16; 11.97-12.30 / 6.01-6.04). The host's
+        threaded Pippenger leads again from about 14,500 terms (41.8-51.6
+        / 49.0-61.6 at 14,575), a size that no caller of "auto" reaches
+        (``python3 -m quisquis_tpu_torch.auto_rules``; PERF.md §5). The
+        JAX package's crossover was measured on a TPU and is not carried
+        over. "sharded" waits for multi-GPU support.
         """
         if backend == "sharded":
             raise NotImplementedError(
                 "backend 'sharded': multi-GPU MSM (ROADMAP A15) is not ported yet")
+        if backend == "auto":
+            resolve_device(device)
+            backend = "device" if self.num_terms >= AUTO_DEVICE_MIN_TERMS else "host"
         if backend not in ("host", "device"):
             raise ValueError(f"unknown backend {backend!r}")
         if self.num_terms == 0:

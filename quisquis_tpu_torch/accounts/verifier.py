@@ -212,7 +212,7 @@ class Verifier:
         else:
             type(proof).batch_verify([(proof, commitments, self.transcript)],
                                      _config().range_bits,
-                                     defer=defer)
+                                     defer=defer, backend="host")
 
     def verify_non_negative_sender_receiver_bulletproof_vector_verifier(
         self, epsilon_account: Sequence[Account], proof_vector: Sequence,
@@ -235,7 +235,7 @@ class Verifier:
             for proof, com in zip(proof_vector, commitments):
                 type(proof).batch_verify([(proof, [com], self.transcript)],
                                          _config().range_bits,
-                                     defer=defer)
+                                         defer=defer, backend="host")
 
     @staticmethod
     def verify_delta_identity_check(epsilon_accounts: Sequence[Account]) -> None:

@@ -1,7 +1,8 @@
-"""Bulletproofs: generators, inner-product argument, range proofs, and the
-batched range verifier and prover on the device."""
+"""Bulletproofs: generators, inner-product argument, range proofs, R1CS
+proofs, and the batched range verifier and prover on the device."""
 
 from .generators import BulletproofGens, bulletproof_gens  # noqa: F401
 from .inner_product import InnerProductProof  # noqa: F401
+from .r1cs import R1CSProof, R1CSProver, R1CSVerifier  # noqa: F401
 from .range_proof import RangeProof  # noqa: F401
 from .device_prove import DeviceRangeProver, get_device_range_prover  # noqa: F401

@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 
 from ..ops import exact as ex
 from ..accounts.transcript import Transcript, SeededRng
+from ..device import resolve_device
 from ..primitives.pedersen import default_pedersen_gens
 from .generators import bulletproof_gens
 from .inner_product import InnerProductProof
@@ -51,6 +52,12 @@ def _delta(n: int, m: int, y: int, z: int) -> int:
         out = (out - zexp * sum_2) % L
         zexp = zexp * z % L
     return out
+
+
+def _auto_min_device(m: int) -> float:
+    """The fewest lanes of m values that prove_batch's "auto" proves on the
+    device: 32 at m >= 16, 64 at m >= 4, never at m = 2 (see prove_batch)."""
+    return 32 if m >= 16 else 64 if m >= 4 else float("inf")
 
 
 @dataclass
@@ -191,23 +198,33 @@ class RangeProof:
             byte-identical to the host prover under the same rng streams.
             The host transcripts are advanced by replaying the finished
             proofs (``advance_transcript``).
-          - "auto": "device-batched". On the H100 the device prover led the
-            host prover at every batch measured, down to 2 lanes: 1.8-2.3 s
-            a proof there, 0.16-0.21 s at 32, against 11-13 s a proof on
-            the host (ROADMAP.md §C; PERF.md §5).
+          - "auto": per group, "device-batched" from
+            ``_auto_min_device(m)`` lanes, "host" below. On the H100 with
+            the C++ curve under the host prover (64 bits, two runs), a host
+            proof took 51.1-57.4 ms at m = 2, 72.4-102.4 at m = 4,
+            134.8-146.7 at m = 8 and 268.7-283.4 at m = 16; one device call
+            of 32 lanes 3.5-6.0 s and of 64 lanes 3.7-6.7 s. The device led
+            at m = 16 from 32 lanes (6,000-6,028 ms against 8,598-9,069 for
+            32 host proofs), at m = 4 and m = 8 from 64 (3,723-4,194 ms
+            against 4,634-6,554; 5,536-6,450 against 8,627-9,389; at 32
+            lanes of m = 8 it was even in one run and behind in the other),
+            never at m = 2 up to 64 (3,695-4,073 against 3,270-3,674)
+            (``python3 -m quisquis_tpu_torch.auto_rules``; PERF.md §5).
+            ``device`` is resolved first, so the default raises without a
+            GPU whichever backend a group takes.
 
         The reference proves range proofs one at a time (reference
         src/accounts/prover.rs:544-591); cross-proof batching has no analog
         there.
         """
         lanes = list(lanes)
+        if backend not in ("auto", "host", "device-batched"):
+            raise ValueError(f"unknown backend {backend!r}")
         if backend == "auto":
-            backend = "device-batched"
+            resolve_device(device)
         if backend == "host":
             return [RangeProof.prove_multiple(t, vals, blinds, n, rng=rng)
                     for t, vals, blinds, rng in lanes]
-        if backend != "device-batched":
-            raise ValueError(f"unknown backend {backend!r}")
         from ..ops.device_strobe import snapshot_host_strobe
         from .device_prove import get_device_range_prover
 
@@ -217,6 +234,11 @@ class RangeProof:
             groups.setdefault((len(vals), frame), []).append(i)
         results: list = [None] * len(lanes)
         for (m, _), idxs in sorted(groups.items()):
+            if backend == "auto" and len(idxs) < _auto_min_device(m):
+                for i in idxs:
+                    t, vals, blinds, rng = lanes[i]
+                    results[i] = RangeProof.prove_multiple(t, vals, blinds, n, rng=rng)
+                continue
             B = max(min_bucket, 1 << (len(idxs) - 1).bit_length())
             pad = idxs + [idxs[0]] * (B - len(idxs))
             drp = get_device_range_prover(n, m, B, device=device)

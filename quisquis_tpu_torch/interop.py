@@ -118,11 +118,12 @@ def keccak_states_to_jax(states: torch.Tensor) -> np.ndarray:
 def _host_classes() -> dict:
     """The port's host dataclasses by class name."""
     from .accounts import prover
-    from .bulletproofs import inner_product, range_proof
+    from .bulletproofs import inner_product, r1cs, range_proof
     from .shuffle import ddh, hadamard, multiexponential, product, shuffle, singlevalueproduct
+    from .transaction import transaction
 
-    mods = (prover, inner_product, range_proof, ddh, hadamard, multiexponential, product,
-            shuffle, singlevalueproduct)
+    mods = (prover, inner_product, r1cs, range_proof, ddh, hadamard, multiexponential, product,
+            shuffle, singlevalueproduct, transaction)
     return {name: cls for mod in mods for name, cls in vars(mod).items()
             if isinstance(cls, type) and dataclasses.is_dataclass(cls)}
 

@@ -43,9 +43,11 @@ import argparse
 import collections
 import ctypes
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -133,6 +135,22 @@ def ptxas_lines(log: str, kernels) -> list[str]:
                      or "stack frame" in line):
             out.append("  " + line.strip())
     return out
+
+
+def median_ms(fn, reps: int):
+    """Median, least and most host-clock ms of fn() over reps calls, each
+    call synchronised with the GPU where one is present (the timer of
+    ``chip_smoke.py``'s proving and transaction phases and of
+    ``auto_rules``)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    walls = []
+    for _ in range(reps):
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(walls), min(walls), max(walls)
 
 
 def time_ms(fn, reps: int) -> float:

@@ -5,10 +5,13 @@ implementation of the GF(2^255-19) field, the scalar field mod l, the twisted
 Edwards curve -x^2 + y^2 = 1 + d x^2 y^2, and the ristretto255 group
 (encode / decode / one-way map) following RFC 9496 and RFC 8032.
 
-The PyTorch port's own copy of the JAX package's exact backend, pure
-Python (the native C++ dispatch is left out). Every CUDA kernel and torch
-function in :mod:`quisquis_tpu_torch.ops.field` /
-:mod:`quisquis_tpu_torch.ops.point` is tested against it at canonical values.
+The PyTorch port's own copy of the JAX package's exact backend. Its point
+functions dispatch to the C++ curve library of :mod:`.host_curve` once the
+package has loaded and g++ has built it (``NATIVE_CURVE``); the
+pure-Python functions stay as the plain versions (``*_py``) and where g++
+is missing. Every CUDA kernel and torch function in
+:mod:`quisquis_tpu_torch.ops.field` / :mod:`quisquis_tpu_torch.ops.point`
+is tested against it at canonical values.
 
 No code is ported from the Rust reference; the math follows the public RFCs.
 """
@@ -408,3 +411,75 @@ def ed25519_encode(p: Point) -> bytes:
     if x & 1:
         b[31] |= 0x80
     return bytes(b)
+
+
+# ---------------------------------------------------------------------------
+# native dispatch (the C++ curve library of host_curve.py)
+# ---------------------------------------------------------------------------
+
+#: pure-Python versions kept as the plain versions (tests) and fallback
+pt_add_py = pt_add
+pt_double_py = pt_double
+pt_mul_py = pt_mul
+pt_base_mul_py = pt_base_mul
+pt_msm_py = pt_msm
+pt_msm_many_py = pt_msm_many
+pt_mul_batch_py = pt_mul_batch
+pt_fold_batch_py = pt_fold_batch
+ristretto_encode_py = ristretto_encode
+ristretto_decode_py = ristretto_decode
+ristretto_encode_batch_py = ristretto_encode_batch
+ristretto_decode_batch_py = ristretto_decode_batch
+
+NATIVE_CURVE = False
+
+
+def _try_enable_native() -> None:
+    """Point this module's point functions at the C++ curve library, where
+    it builds and loads; otherwise leave them pure Python."""
+    global pt_add, pt_double, pt_mul, pt_base_mul, pt_msm
+    global pt_mul_batch, pt_fold_batch, pt_msm_many
+    global ristretto_encode, ristretto_decode, NATIVE_CURVE
+    global ristretto_encode_batch, ristretto_decode_batch
+    import sys
+
+    from . import host_curve as nc
+
+    if not nc.init_constants(sys.modules[__name__]):
+        return
+
+    def _pt_mul(s, p):
+        return nc.pt_mul(s, p, L)
+
+    def _pt_msm(scalars, points):
+        return nc.pt_msm(list(scalars), list(points), L)
+
+    def _pt_base_mul(s):
+        return nc.pt_base_mul(s, L)
+
+    def _pt_mul_batch(scalars, points):
+        return nc.pt_mul_batch(list(scalars), list(points), L)
+
+    def _pt_fold_batch(a_scalars, b_scalars, ps, qs):
+        return nc.fold_batch(list(a_scalars), list(b_scalars),
+                             list(ps), list(qs), L)
+
+    def _pt_msm_many(items):
+        return nc.pt_msm_many([(list(s), list(p)) for s, p in items], L)
+
+    pt_add = nc.pt_add
+    pt_double = nc.pt_double
+    pt_mul = _pt_mul
+    pt_base_mul = _pt_base_mul
+    pt_msm = _pt_msm
+    pt_mul_batch = _pt_mul_batch
+    pt_fold_batch = _pt_fold_batch
+    pt_msm_many = _pt_msm_many
+    ristretto_encode = nc.ristretto_encode
+    ristretto_decode = nc.ristretto_decode
+    ristretto_encode_batch = nc.ristretto_encode_batch
+    ristretto_decode_batch = nc.ristretto_decode_batch
+    NATIVE_CURVE = True
+
+
+# called from quisquis_tpu_torch/__init__ once the package has loaded

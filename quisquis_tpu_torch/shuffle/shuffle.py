@@ -22,6 +22,7 @@ from ..accounts.accounts import Account
 from ..accounts.prover import Prover
 from ..accounts.verifier import Verifier
 from ..accounts.transcript import SeededRng
+from ..device import resolve_device
 from .hadamard import HadamardProof, HadamardStatement
 from .product import ProductProof, ProductStatement
 from .multiexponential import MultiexpoProof
@@ -416,16 +417,22 @@ def _advance_shuffle_transcript(proof: ShuffleProof, verifier: Verifier,
 ShuffleProof.advance_transcript = _advance_shuffle_transcript
 
 
-def _auto_min_device(m: int) -> int:
+def _auto_min_device(m: int) -> float:
     """The fewest shuffles of side m that "auto" proves on the device: on
-    the H100 a device call costs about 2.8-3.5 s whatever its batch, the
-    host prover about 0.8 s a proof at m = 3 and 3.1-3.7 s at m = 8
-    (PERF.md §5)."""
-    return 2 if m >= 8 else 4
+    the H100 (four runs) a device call cost 2.1-3.8 s at m = 3 and 2.7-5.4 s
+    at m = 8 for 2 to 64 shuffles, the host prover on the C++ curve
+    24.2-43.4 ms a proof at m = 3 and 68.8-98.8 ms at m = 8; the device led
+    only at m = 8 with 64 (3,153-5,349 ms against 4,403-6,323)
+    (``python3 -m quisquis_tpu_torch.auto_rules``; PERF.md §5)."""
+    return 64 if m >= 8 else float("inf")
 
 
 #: the smallest device bucket of batch_create_shuffle_proofs
 _MIN_BUCKET = 2
+
+#: the fewest proofs (each of side 8 or more) that batch_verify_shuffle_proofs'
+#: "auto" verifies on the device (see its docstring)
+AUTO_DEVICE_PROOFS = 64
 
 
 def batch_create_shuffle_proofs(shuffles, rngs=None, backend="auto", device="cuda"):
@@ -440,10 +447,11 @@ def batch_create_shuffle_proofs(shuffles, rngs=None, backend="auto", device="cud
         on ``device``: byte-identical to the host prover under the same
         per-lane rng streams.
       - "auto": "device-batched" for a group of at least
-        ``_auto_min_device(m)`` shuffles, "host" for a smaller one. On the
-        H100 the device led at 16 shuffles for m = 3 and m = 8 and at 2 for
-        m = 8, and the host led at 2 for m = 3 (ROADMAP.md §C; PERF.md §5).
-        The JAX package's TPU crossover table is not carried over.
+        ``_auto_min_device(m)`` shuffles, "host" for a smaller one (read on
+        the H100 with the C++ curve under the host prover; ROADMAP.md §C,
+        PERF.md §5). ``device`` is resolved first, so the default raises
+        without a GPU whichever backend a group takes. The JAX package's
+        TPU crossover table is not carried over.
 
     Reference prove path: reference src/shuffle/shuffle.rs:361-532 (one
     proof at a time).
@@ -455,6 +463,8 @@ def batch_create_shuffle_proofs(shuffles, rngs=None, backend="auto", device="cud
         rngs = [SeededRng() for _ in shuffles]
     if backend not in ("auto", "host", "device-batched"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        resolve_device(device)
     groups: dict = {}
     for i, sh in enumerate(shuffles):
         groups.setdefault(len(sh.inputs), []).append(i)
@@ -487,13 +497,21 @@ def batch_verify_shuffle_proofs(entries, xpc_gens=None, backend="auto",
     `entries`: iterable of (proof, verifier, statement, inputs, outputs).
 
     backend:
-      - "device-batched" (and "auto"): the whole verifier (batched
-        transcript replay, challenge arithmetic and one combined MSM) on
-        ``device``, per shape bucket (shuffle.device_verify).
+      - "device-batched": the whole verifier (batched transcript replay,
+        challenge arithmetic and one combined MSM) on ``device``, per shape
+        bucket (shuffle.device_verify).
       - "host" or "device": each proof's transcript is replayed here and
         every point-identity check, scaled by a fresh random weight, joins
         one accumulator (accounts.deferred.DeferredPointChecks); its one
         MSM runs on the host ("host") or on ``device`` ("device").
+      - "auto": "device-batched" for at least AUTO_DEVICE_PROOFS proofs, all
+        of side 8 or more, else "host" (``device`` resolved first). On the
+        H100 with the C++ curve (four runs), "host" led at 2, 16 and 32
+        proofs of side 8 (33.0-48.4 against 714.5-907.4 ms at 2,
+        441.9-577.0 against 685.1-900.7 at 32) and at every batch of side 3
+        up to 64; "device-batched" led at 64 of side 8 (614.5-897.3
+        against 890.4-1,159.7 ms) (``python3 -m
+        quisquis_tpu_torch.auto_rules``; PERF.md §5).
       - "sharded" waits for multi-GPU support (ROADMAP A15).
 
     The eager equivalent loops `proof.verify(...)` per proof (reference
@@ -503,7 +521,9 @@ def batch_verify_shuffle_proofs(entries, xpc_gens=None, backend="auto",
 
     entries = list(entries)
     if backend == "auto":
-        backend = "device-batched"
+        resolve_device(device)
+        wide = all(len(ins) >= 64 for _, _, _, ins, _ in entries)
+        backend = "device-batched" if wide and len(entries) >= AUTO_DEVICE_PROOFS else "host"
     if backend == "sharded":
         raise NotImplementedError(
             "backend 'sharded': multi-GPU verification (ROADMAP A15) is not ported yet")

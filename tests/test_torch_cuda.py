@@ -361,3 +361,45 @@ def test_shared_rows_equal_plain(dev, rows, k):
     for r in (0, rows - 1):
         s = [sum(int(d) << (4 * w) for w, d in enumerate(row)) for row in nib[r].tolist()]
         assert bytes(pt.compress_to_bytes(got)[r]) == ex.ristretto_encode(ex.pt_msm(s, host_pts))
+
+
+def test_batch_create_transactions_equals_the_host_loop(dev):
+    """Three 1 + 1 transactions over 9 accounts, their range proofs as a
+    bucket of 4 lanes of the device prover: byte for byte the loop of
+    create_transaction, launches on the card."""
+    from quisquis_tpu_torch.bulletproofs import device_prove as rdp
+    from quisquis_tpu_torch.transaction import transaction as ptx
+    from quisquis_tpu_torch.transaction.workloads import benchmark_requests, comparable
+    rdp._PROVER_CACHE.clear()
+    before = dict(kp.LAUNCHES)
+    built = ptx.batch_create_transactions(benchmark_requests(b"cuda-tx", 3, 1, 9),
+                                          range_backend="device-batched", device=dev)
+    assert [k[:3] for k in rdp._PROVER_CACHE] == [(64, 2, 4)]
+    assert all(kp.LAUNCHES[k] > before[k] for k in ("msm_acc", "msm_tail", "keccak_f1600"))
+    loop = [ptx.create_transaction(**req) for req in benchmark_requests(b"cuda-tx", 3, 1, 9)]
+    assert comparable(built) == comparable(loop)
+
+
+def test_batch_verify_transactions_device_batched(dev):
+    """The device-batched verdict on an honest batch and on one tampered
+    transaction: a multi-exponentiation commitment of its output shuffle,
+    which only the device verifier reads."""
+    import dataclasses
+    from quisquis_tpu_torch.transaction import transaction as ptx
+    from quisquis_tpu_torch.transaction.workloads import benchmark_requests
+    items = ptx.batch_create_transactions(benchmark_requests(b"cuda-tv", 3, 1, 9),
+                                          range_backend="host")
+    before = dict(kp.LAUNCHES)
+    ptx.batch_verify_transactions(items, backend="device-batched", seed=b"w", device=dev)
+    assert all(kp.LAUNCHES[k] > before[k] for k in kp.LAUNCHES if k != "base_mul")
+    tx, proof = items[1]
+    sp = proof.output_shuffle_proof
+    me = sp.multi_exponen_commit
+    me = dataclasses.replace(me, E_k_0=[bytes([me.E_k_0[0][0] ^ 1]) + me.E_k_0[0][1:]]
+                             + me.E_k_0[1:])
+    bad = dataclasses.replace(proof, output_shuffle_proof=dataclasses.replace(
+        sp, multi_exponen_commit=me))
+    for backend in ("device-batched", "host"):
+        with pytest.raises(ValueError):
+            ptx.batch_verify_transactions([items[0], (tx, bad), items[2]], backend=backend,
+                                          seed=b"w", device=dev)

@@ -86,10 +86,11 @@ def test_wire_export_absorb_and_merge():
             assert len(sbuf) == 32 * two.num_terms and len(pbuf) == 128 * two.num_terms
             one.absorb_wire(sbuf, pbuf, labels)
             verdicts.append(_accepts(lambda: one.verify(backend=backend, device="cpu")))
-        merged, part = _checks(b"wire", bad)
-        merged.merge(part)
-        verdicts.append(_accepts(lambda: merged.verify(device="cpu")))  # the default, "device"
-        assert verdicts == [not bad] * 3, (bad, verdicts)
+        for backend in ("device", "auto"):   # "auto", the default, takes the host here
+            merged, part = _checks(b"wire", bad)
+            merged.merge(part)
+            verdicts.append(_accepts(lambda: merged.verify(backend=backend, device="cpu")))
+        assert verdicts == [not bad] * 4, (bad, verdicts)
     with pytest.raises(ValueError, match="malformed"):
         DeferredPointChecks(b"x").absorb_wire(b"\0" * 31, b"\0" * 128, [])
     with pytest.raises(NotImplementedError, match="A15"):

@@ -47,13 +47,13 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     line = proc.stdout.strip().splitlines()[-1]
     assert line.endswith("FORBIDDEN []"), line
-    assert int(line.split()[1]) >= 29
+    assert int(line.split()[1]) >= 59
     # an import inside a function runs only when the function does: no source
     # line of the port imports either, wherever it stands
     forbidden = re.compile(r"^\s*(import|from)\s+(jax|quisquis_tpu)(\.|\s|$)", re.M)
     sources = glob.glob(os.path.join(REPO, "quisquis_tpu_torch", "**", "*.py"), recursive=True)
     sources.append(os.path.join(REPO, "chip_smoke.py"))
-    assert len(sources) >= 30
+    assert len(sources) >= 61
     for path in sources:
         with open(path) as f:
             found = forbidden.search(f.read())
@@ -120,6 +120,15 @@ def test_default_device_raises_without_gpu():
         sdp.get_device_shuffle_prover(2, 2)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         batch_create_shuffle_proofs([types.SimpleNamespace(inputs=[None] * 4)] * 4)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        checks.verify()   # "auto" resolves the device whichever backend it takes
+    from quisquis_tpu_torch.transaction import (batch_create_transactions,
+                                                batch_verify_transactions)
+    for backend in ("auto", "device-batched"):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            batch_create_transactions([{}], range_backend=backend)   # before any host work
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            batch_verify_transactions([], backend=backend)
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -165,9 +165,9 @@ def test_batch_create_and_backends(pair):
             Prover(b"Shuffle", Transcript(b"ShuffleProof"), rng=rng), shuffle, rng=rng)
         assert (proof, statement) == want
     assert metrics.timers["shuffle.prove"] and len(metrics.timers["shuffle.prove"]) == 4
-    # "auto" keeps a group of fewer than 4 small shuffles on the host prover
+    # "auto" keeps a group of a few small shuffles on the host prover
     assert sh.batch_create_shuffle_proofs(
-        shuffles, [SeededRng(seed=tag + b"p%d" % i) for i in range(2)]) == out
+        shuffles, [SeededRng(seed=tag + b"p%d" % i) for i in range(2)], device="cpu") == out
     # the device-batched prover exists now (shuffle/device_prove.py; its
     # bytes are held in tests/test_torch_shuffle_prove*.py): an empty batch
     # proves nothing
