@@ -98,7 +98,8 @@ Phases, each printed on its own line:
      the two equal byte for byte and every transaction verifies; the four
      MSM and Keccak kernels against their plain versions at that prover's
      shapes; times: the median of 3 builds by each range backend, the range
-     proving apart, launches, one profiled build;
+     proving apart, launches, each kernel's bound summed over one build's
+     launches, one profiled build;
  15. batch verification: 32 transactions of config 6/6b (1 + 1 over 9
      accounts) and 4 over 64 accounts by batch_verify_transactions,
      accepted by "device-batched" (the collector's shuffle groups by shape
@@ -107,23 +108,51 @@ Phases, each printed on its own line:
      (two of them only the device verifiers read: the host part accepts);
      the five kernels against their plain versions at the verifiers'
      shapes; times: the median of 3 calls of each backend on this batch and
-     on phase 14's, launches, one profiled call;
- 16. one JSON line per contract with every kernel's numbers, then the
+     on phase 14's, launches, each kernel's bound summed over one call's
+     launches, one profiled call;
+ 16. the serving layer at the deployments users run, with os.cpu_count()
+     worker processes: ShuffleVerificationService on phase 11's 16 proofs as
+     wire entries (row 5d) and VerificationService on phase 15's 32
+     transactions of config 6/6b as wire pairs (row 6c), each backend
+     accepting and rejecting a tampered and a truncated request (naming the
+     chunk where a pool verifies), medians of 3, the merged MSM's term count
+     and time; no worker initialized CUDA; ProvingService on 16 build
+     requests (row 6d) equal to an in-process _build_chunk replay and
+     verified; RangeProvingService at row 4e on device-batched, lanes 0-3
+     equal to the host service's, all 32 verified; Signature.batch_verify of
+     21,845 signatures (65,535 terms, BASELINE.json config 3) on "device"
+     and "host", a forged s rejected by both; the merged and Schnorr MSMs
+     held to the plain MSM stages; then the resident daemon (python -m
+     quisquis_tpu_torch.daemon, two warm shapes) and a fresh client process
+     that pings, verifies the shuffle entries (first and second request
+     timed), proves 4 ranges equal to the host prover's and verifies the 32
+     transactions, with a tampered entry, a wrong key and a pickle frame
+     refused, the key file 0600 in a 0700 directory, no torch in the
+     client, and shutdown ending the daemon with 0;
+ 17. one JSON line per contract with every kernel's numbers, then the
      final status line.
 
 Any failed check raises, and the script exits non-zero. It also exits
-non-zero without a GPU or outside a checkout of the repository.
+non-zero without a GPU or outside a checkout of the repository. Whether it
+passes or fails, it stops every process it started before it returns: the
+worker pools, the serving layer's forkserver and multiprocessing's resource
+tracker, and (as the children's subreaper) any orphan of theirs.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import json
+import math
 import os
+import shutil
+import stat
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ProcessPoolExecutor
@@ -153,6 +182,11 @@ TX_VERIFY, TX_VERIFY_ACCOUNTS = 32, 9          # config 6/6b: the reference's 9-
 TX_VERIFY_WIDE, TX_WIDE_ACCOUNTS = 4, 64       # and a few at 64 accounts
 TX_REPS = 3                                    # timed calls of each transaction path
 FEW_TERMS = 8                                 # a sigma-sized deferred check
+SCHNORR_SIGS = 21_845                          # BASELINE.json config 3: 3 terms each, 2^16 - 1
+PROVE_SERVICE_TX = 16                          # ProvingService's build requests (row 6d)
+SERVICE_REPS = 3                               # timed calls of each service
+DAEMON_SHAPES = ("shuffle:8:16", "range-prove:64:16:32")   # the daemon's warm shapes
+DAEMON_RANGES = 4                              # range proofs the daemon's client asks for
 SHUFFLE_KERNELS = ("scalar_mul", "msm_table", "msm_acc", "msm_tail", "keccak_f1600")
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 INT32_LANES_PER_SM = 64     # Hopper SM: 4 partitions x 16 INT32 lanes
@@ -243,6 +277,51 @@ def _patch_timer(cls, name: str, spent: list, sync):
     return lambda: setattr(cls, name, raw)
 
 
+def launch_bounds(seen, bound, launches) -> str:
+    """Each kernel's bound summed over one call's launches, from the
+    arguments its wrapper was given (seen: "table", "acc", "tail", "sm",
+    "keccak" -> argument tuples, one a launch, checked against `launches`,
+    the call's launch counts), counting what the data needs: msm_table the
+    points that are not the identity, msm_acc the points with a nonzero
+    digit (row padding is neither). `bound(ops, bytes)` -> (ms, by)."""
+    from quisquis_tpu_torch.ops import field as fe
+    from quisquis_tpu_torch.ops import msm as qmsm
+    point_bytes = 4 * fe.NLIMBS * 4
+    sums_row = 64 * 4 * fe.NLIMBS * qmsm.MSM_LANES * 4
+    sm_ops = sum(FIELD_OPS["scalar_mul"][k] * PRODUCTS[k] for k in PRODUCTS)
+    names = {"table": "msm_table", "acc": "msm_acc", "tail": "msm_tail", "sm": "scalar_mul",
+             "keccak": "keccak_f1600"}
+    parts = {}
+    for key, calls in seen.items():
+        if key not in names:
+            continue
+        name = names[key]
+        check(len(calls) == launches.get(name, 0),
+              f"{len(calls)} {name} calls recorded, {launches.get(name, 0)} launched")
+        for args in calls:
+            if key == "table":
+                p = args[0]
+                k = int((~((p.x == 0).all(-1) & (p.t == 0).all(-1))).sum())
+                b = bound(k * MSM_PRODUCTS["table_point"], k * 17 * point_bytes)
+            elif key == "acc":
+                digits, _, rows = args
+                k = int((digits != 0).any(0).sum())
+                b = bound(k * 64 * MSM_PRODUCTS["add"],
+                          k * (64 * 4 + 16 * point_bytes) + rows * sums_row)
+            elif key == "tail":
+                rows = args[0].x.shape[0]
+                b = bound(rows * MSM_PRODUCTS["tail_row"], rows * (sums_row + point_bytes))
+            elif key == "sm":
+                n = args[0].shape[0]
+                b = bound(n * sm_ops, n * (64 + 8 * fe.NLIMBS) * 4)
+            else:
+                n = args[0].shape[0]
+                b = bound(n * KECCAK_OPS_PER_STATE, n * 400)
+            parts.setdefault(name, []).append(b)
+    return "; ".join(f"{k} {sum(ms for ms, _ in v):.5f} ms over {len(v)} launches "
+                     f"({'/'.join(sorted({by for _, by in v}))})" for k, v in parts.items())
+
+
 def phase_tx_build(h, n_tx=TX_BUILD, n_senders=TX_SENDERS, n_accounts=TX_ACCOUNTS,
                    reps=TX_REPS):
     """Transaction building at config 6e's width: batch_create_transactions
@@ -296,12 +375,16 @@ def phase_tx_build(h, n_tx=TX_BUILD, n_senders=TX_SENDERS, n_accounts=TX_ACCOUNT
 
     # the kernels at this prover's shapes: one more build records their inputs
     drp = rdp._PROVER_CACHE[next(iter(rdp._PROVER_CACHE))]
-    seen, restore = h.keep_calls([(kp, "msm_window_sums", "acc"), (kk, "f1600", "keccak")])
+    seen, restore = h.keep_calls([(kp, "msm_window_sums", "acc"), (kk, "f1600", "keccak"),
+                                  (kp, "msm_table", "table"), (kp, "msm_tail", "tail")])
+    cb.reset_launches()
     try:
         build(benchmark_requests(b"chip-smoke-6e", n_tx, n_senders, n_accounts),
               "device-batched")
     finally:
         restore()
+    h.say(phase, f"bounds summed over one build's launches (the points the data needs): "
+                 f"{launch_bounds(seen, h.bound, _launched(cb))} [{h.card}]")
     acc_calls = seen["acc"]
     check(len(acc_calls) == 2 + drp.k, f"{len(acc_calls)} msm_acc calls a build")
     basis = drp._basis
@@ -464,11 +547,16 @@ def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
     # the kernels at the device verifiers' shapes: one more verify records
     # their inputs (the largest call of each kind is held to the plain one)
     seen, restore = h.keep_calls([(kp, "scalar_mul", "sm"), (qmsm, "msm_rows", "rows"),
-                                  (qmsm, "msm", "msm"), (kk, "f1600", "keccak")])
+                                  (qmsm, "msm", "msm"), (kk, "f1600", "keccak"),
+                                  (kp, "msm_table", "table"), (kp, "msm_window_sums", "acc"),
+                                  (kp, "msm_tail", "tail")])
+    cb.reset_launches()
     try:
         verify(items, "device-batched")
     finally:
         restore()
+    h.say(phase, f"bounds summed over one call's launches (the points the data needs): "
+                 f"{launch_bounds(seen, h.bound, _launched(cb))} [{h.card}]")
     nib_p, pts_p = max(seen["sm"], key=lambda a: a[0].shape[0])
     h.same(kp.scalar_mul(nib_p, pts_p), pt.scalar_mul(nib_p, pts_p), "scalar_mul",
            f"the transaction shuffle verifier's {nib_p.shape[0]} product lanes")
@@ -502,6 +590,424 @@ def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
                      + "; ".join(parts) + f" [{h.card}]")
     h.say(phase, h.profile(lambda: verify(items, "device-batched"),
                            "batch_verify_transactions (device-batched)", SHUFFLE_KERNELS))
+    return items
+
+
+def schnorr_transcript(i: int):
+    from quisquis_tpu_torch.accounts.transcript import Transcript
+    return Transcript(b"chip-smoke-schnorr-%d" % i)
+
+
+def schnorr_slice(first: int, count: int):
+    """Worker process: `count` zkSchnorr signatures from index `first`, each
+    by its own key over its own transcript, from the port's host signer.
+    Returns [(signature bytes, verification-key bytes)]."""
+    sys.path.insert(0, REPO)
+    from quisquis_tpu_torch.accounts.transcript import SeededRng
+    from quisquis_tpu_torch.primitives.schnorr import Signature, VerificationKey
+    rng = SeededRng(seed=b"chip-smoke-schnorr-%d" % first)
+    out = []
+    for i in range(first, first + count):
+        sk = rng.random_scalar()
+        vk = VerificationKey.from_secret(sk, rng.random_scalar())
+        out.append((Signature.sign(schnorr_transcript(i), vk, sk, rng=rng).to_bytes(),
+                    vk.to_bytes()))
+    return out
+
+
+#: the daemon's client: a fresh interpreter that imports only
+#: quisquis_tpu_torch.daemon; argv: socket, input file (JSON); prints one
+#: JSON line of results
+DAEMON_CLIENT = r'''
+import json, pickle, sys, time
+from multiprocessing import AuthenticationError
+from multiprocessing.connection import Client
+from quisquis_tpu_torch.daemon import KEY_BYTES, DeviceClient
+
+
+class Evil:
+    def __init__(self, path):
+        self.path = path
+
+    def __reduce__(self):
+        return (open, (self.path, "w"))
+
+
+sock, inputs = sys.argv[1], json.load(open(sys.argv[2]))
+blobs = [bytes.fromhex(b) for b in inputs["shuffles"]]
+pairs = [(bytes.fromhex(a), bytes.fromhex(b)) for a, b in inputs["pairs"]]
+out = {}
+with DeviceClient(sock, retries=900) as c:
+    out["ping"] = c.ping()
+    out["shuffle_s"] = []
+    for _ in range(2):
+        t = time.perf_counter()
+        out["shuffles"] = c.verify_shuffles(blobs, backend="device-batched")
+        out["shuffle_s"].append(time.perf_counter() - t)
+    bad = bytearray(blobs[0])
+    bad[inputs["flip"]] ^= 1
+    try:
+        c.verify_shuffles([bytes(bad)] + blobs[1:], backend="device-batched")
+        out["tamper"] = "accepted"
+    except ValueError as e:
+        out["tamper"] = "ValueError: " + str(e)[:60]
+    r = inputs["ranges"]
+    t = time.perf_counter()
+    proved = c.prove_ranges(r["n"], r["values"], r["blindings"],
+                            [bytes.fromhex(x) for x in r["seeds"]], backend="device-batched")
+    out["range_s"] = time.perf_counter() - t
+    out["ranges"] = [[p.hex(), [v.hex() for v in V]] for p, V in proved]
+    t = time.perf_counter()
+    out["tx"] = c.verify_transactions(pairs)
+    out["tx_s"] = time.perf_counter() - t
+    try:
+        c.roundtrip(pickle.dumps(Evil(inputs["pwned"])))
+        out["pickle"] = "ok"
+    except RuntimeError as e:
+        out["pickle"] = "error: " + str(e)[:60]
+try:
+    Client(sock, "AF_UNIX", authkey=b"\0" * KEY_BYTES)
+    out["wrong_key"] = "accepted"
+except AuthenticationError:
+    out["wrong_key"] = "refused"
+out["torch_loaded"] = "torch" in sys.modules
+out["cuda_modules"] = sorted(m for m in sys.modules if m.startswith("quisquis_tpu_torch.ops.cuda_"))
+print(json.dumps(out))
+'''
+
+
+def _ddh_z_offset(entry: bytes) -> int:
+    """The offset of the DDH response z's first byte in a shuffle entry
+    (serde: the proof blob, u32-counted, ends with challenge, z, G', H')."""
+    return 4 + int.from_bytes(entry[:4], "little") - 96
+
+
+def _launched(cb) -> dict:
+    return {k: v for k, v in cb.LAUNCHES.items() if v}
+
+
+def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
+                   n_build=PROVE_SERVICE_TX, n_prove=RANGE_PROVE_BATCH, reps=SERVICE_REPS,
+                   daemon_shapes=DAEMON_SHAPES, range_bits=RANGE_N, range_m=RANGE_M):
+    """The serving layer at the deployments users run: ShuffleVerificationService
+    on phase 11's 16 shuffle proofs (row 5d), VerificationService on phase
+    15's 32 transactions of config 6/6b (row 6c), ProvingService on 16
+    build requests (row 6d), RangeProvingService at row 4e, a batched
+    Schnorr verify of BASELINE.json config 3, and the resident daemon with
+    a fresh client process; the merged MSMs and the Schnorr MSM held to the
+    plain MSM stages. `h`: the run's helpers, with `pool` (the worker
+    processes). Every service runs `workers` processes (default: this
+    machine's CPUs)."""
+    from quisquis_tpu_torch import daemon as qdaemon
+    from quisquis_tpu_torch import serving
+    from quisquis_tpu_torch.accounts.accounts import Account
+    from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks
+    from quisquis_tpu_torch.accounts.transcript import SeededRng, Transcript
+    from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
+    from quisquis_tpu_torch.ops import cuda_build as cb
+    from quisquis_tpu_torch.ops import exact as ex
+    from quisquis_tpu_torch.ops import msm as qmsm
+    from quisquis_tpu_torch.ops import point as pt
+    from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey, RistrettoSecretKey
+    from quisquis_tpu_torch.primitives.schnorr import Signature, VerificationKey
+    from quisquis_tpu_torch.utils import serde
+    from quisquis_tpu_torch.utils.metrics import metrics
+
+    phase, dev = h.phase, h.dev
+    if workers is None:
+        workers = min(os.cpu_count() or 1, len(os.sched_getaffinity(0)))
+    msm_kernels = ("msm_table", "msm_acc", "msm_tail")
+
+    def held(call, what):
+        nib, pts = call
+        h.stages_against_plain(nib[None], pt.ExtPoint(*(c[None] for c in pts)), what)
+
+    def rejected(fn, chunk=None):
+        """fn() raises ValueError, naming `chunk` where one is given."""
+        try:
+            fn()
+        except ValueError as e:
+            check(chunk is None or f"chunk {chunk}:" in str(e), f"'chunk {chunk}' in {e}")
+            return
+        raise RuntimeError("check failed: a tampered request was accepted")
+
+    def timed_services(svcs, batch, bad, chunk, unit):
+        """Accept, two rejections, the median of `reps` calls, launches and
+        the merged MSMs of each service; the device MSM's inputs kept."""
+        parts, kept = [], None
+        for svc in svcs:
+            h.sync()
+            cb.reset_launches()
+            if svc.backend == "device":
+                seen, restore = h.keep_calls([(qmsm, "msm", "msm")])
+            try:
+                check(svc.verify_wire(batch) == len(batch), f"{svc.backend} accepts")
+            finally:
+                if svc.backend == "device":
+                    restore()
+                    kept = max(seen["msm"], key=lambda a: a[0].shape[0])
+            launches = _launched(cb)
+            want = {"device": set(msm_kernels), "device-batched": set(SHUFFLE_KERNELS)}
+            check(set(launches) == want.get(svc.backend, set()),
+                  f"{svc.backend} service launches {launches}")
+            for b, c in zip(bad, chunk):
+                rejected(lambda: svc.verify_wire(b),
+                         c if svc.backend != "device-batched" else None)
+            # the merged MSM's terms and time, from the service's metrics
+            key = "serving.merged_msm." + ("device" if svc.backend == "device" else "host")
+            terms0 = metrics.counters.get("serving.merged_terms", 0)
+            n0 = len(metrics.timers.get(key, []))
+            med, lo, hi = h.median_ms(lambda: svc.verify_wire(batch), reps=reps)
+            part = (f"{svc.backend}: median {med:.1f} ms (min {lo:.1f}, max {hi:.1f}) = "
+                    f"{len(batch) / med * 1e3:.2f} {unit}/s")
+            if svc.backend in ("device", "merged-host"):
+                msm_s = metrics.timers[key][n0:]
+                terms = (metrics.counters["serving.merged_terms"] - terms0) / len(msm_s)
+                part += (f", merged MSM of {terms:.0f} coalesced terms: median "
+                         f"{statistics.median(msm_s) * 1e3:.2f} ms")
+            parts.append(part + (f", launches {launches}" if launches else ""))
+        return parts, kept
+
+    # -- 5d: ShuffleVerificationService on phase 11's proofs -----------------
+    blobs = [serde.shuffle_entry_to_bytes(*e) for e in entries]
+    at = 3 % min(workers, len(blobs))
+    flip = bytearray(blobs[at])
+    flip[_ddh_z_offset(blobs[at])] ^= 1
+    bad5 = [blobs[:at] + [bytes(flip)] + blobs[at + 1:],
+            blobs[:at] + [blobs[at][:-1]] + blobs[at + 1:]]
+    shuffle_svcs = [serving.ShuffleVerificationService(workers, backend=b, device=dev)
+                    for b in ("device", "merged-host", "device-batched")]
+    try:
+        parts5, msm5 = timed_services(shuffle_svcs, blobs, bad5, (at, at), "proofs")
+        states = [f.result() for f in [shuffle_svcs[0]._pool.submit(torch.cuda.is_initialized)
+                                       for _ in range(workers)]]
+        check(not any(states), f"workers left CUDA uninitialized after their chunks: {states}")
+    finally:
+        for svc in shuffle_svcs:
+            svc.close()
+    h.say(phase, f"ShuffleVerificationService, {workers} workers, {len(blobs)} proofs of m="
+                 f"{math.isqrt(len(entries[0][2]))} over {len(entries[0][2])} accounts "
+                 f"(benchmarks.py row 5d) as wire entries: accepted by each backend; one "
+                 f"flipped byte (the DDH response) and one truncated blob rejected by each, "
+                 f"naming chunk {at} where the pool verifies; host clock, {reps} calls: "
+                 + "; ".join(parts5) + f"; no worker initialized CUDA [{h.card}]")
+
+    # -- 6c: VerificationService on phase 15's 32 transactions ---------------
+    pairs = [serving.serialize_transaction(tx, proof) for tx, proof in items]
+    at = 5 % min(workers, len(pairs))
+    tx, proof = items[at]
+    zv, zr1, zr2, x = proof.delta_dleq
+    tampered = serving.serialize_transaction(
+        tx, dataclasses.replace(proof, delta_dleq=([zv[0] + 1] + zv[1:], zr1, zr2, x)))
+    bad6 = [pairs[:at] + [tampered] + pairs[at + 1:],
+            pairs[:at] + [(pairs[at][0], pairs[at][1][:-7])] + pairs[at + 1:]]
+    tx_svcs = {b: serving.VerificationService(workers, backend=b, device=dev)
+               for b in ("host", "merged-host", "device", "device-batched")}
+    try:
+        parts6, msm6 = timed_services(list(tx_svcs.values()), pairs, bad6, (at, at), "tx")
+        h.say(phase, f"VerificationService, {workers} workers, {len(pairs)} wire transactions of "
+                     f"config 6/6b (benchmarks.py row 6c): accepted by each backend; one "
+                     f"tampered pair (a sigma response) and one truncated blob rejected by each, "
+                     f"naming chunk {at} where the pool verifies; host clock, {reps} calls: "
+                     + "; ".join(parts6) + f" [{h.card}]")
+
+        # -- 6d: ProvingService --------------------------------------------------
+        r = SeededRng(seed=b"chip-smoke-6d")
+        reqs = []
+        for i in range(n_build):
+            sk = RistrettoSecretKey.random(r)
+            acc, _ = Account.generate_account(RistrettoPublicKey.from_secret_key(sk, r), r)
+            acc = Account.update_account(acc, 10 + i, r.random_scalar(), r.random_scalar())
+            rec = RistrettoPublicKey.from_secret_key(RistrettoSecretKey.random(r), r)
+            reqs.append(serving.BuildRequest(acc.as_bytes(), sk.as_bytes(), 5, rec.as_bytes(),
+                                             10 + i - 5))
+        with serving.ProvingService(workers, seed=b"chip-smoke-6d") as pp:
+            built = pp.build(reqs)
+            med, lo, hi = h.median_ms(lambda: pp.build(reqs), reps=reps)
+        nchunks = min(workers, n_build)
+        replay = [None] * n_build
+        for i in range(nchunks):
+            seed = hashlib.sha512(b"chip-smoke-6d" + b"build"
+                                  + i.to_bytes(8, "little")).digest()[:32]
+            replay[i::nchunks] = serving._build_chunk(reqs[i::nchunks], seed)
+        check(built == replay, "ProvingService pairs == the in-process _build_chunk replay")
+        check(tx_svcs["host"].verify_wire(built) == n_build, "every built pair verifies")
+        h.say(phase, f"ProvingService, {workers} workers, {n_build} BuildRequests (benchmarks.py "
+                     f"row 6d): the pairs equal an in-process _build_chunk replay byte for byte "
+                     f"and verify; host clock, {reps} builds: median {med:.1f} ms (min {lo:.1f}, "
+                     f"max {hi:.1f}) = {n_build / med * 1e3:.2f} tx/s [{h.card}]")
+    finally:
+        for svc in tx_svcs.values():
+            svc.close()
+
+    # -- 4e: RangeProvingService ---------------------------------------------
+    lanes = [range_lane(i) for i in range(n_prove)]
+    requests = [(v, b) for v, b, _ in lanes]
+    rps = serving.RangeProvingService(range_bits, backend="device-batched",
+                                      seed=b"chip-smoke-4e", device=dev)
+    t0 = time.perf_counter()
+    rps.warmup(range_m, n_prove)
+    h.sync()
+    warm_s = time.perf_counter() - t0
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    proved = rps.prove(requests)
+    h.sync()
+    prove_s = time.perf_counter() - t0
+    launches = _launched(cb)
+    check({"msm_acc", "msm_tail", "keccak_f1600"} <= set(launches),
+          f"RangeProvingService launches {launches}")
+    t0 = time.perf_counter()
+    host = serving.RangeProvingService(range_bits, backend="host", seed=b"chip-smoke-4e",
+                                       device=dev).prove(requests[:4])
+    host_s = time.perf_counter() - t0
+    check([(p.to_bytes(), V) for p, V in proved[:4]] == [(p.to_bytes(), V) for p, V in host],
+          "RangeProvingService device-batched lanes 0-3 == host, byte for byte")
+    ps, vs = [p for p, _ in proved], [V for _, V in proved]
+    reps_v = drv.batch // len(ps)
+    drv.verify(ps * reps_v, vs * reps_v)   # raises unless every proof verifies
+    h.say(phase, f"RangeProvingService({range_bits}, device-batched), {n_prove} requests of "
+                 f"{range_m} values (benchmarks.py row 4e): lanes 0-3 == the host service's "
+                 f"byte for byte, all {n_prove} verify (phase 8's verifier); warmup {warm_s:.2f} "
+                 f"s, then one call {prove_s * 1e3:.1f} ms = {n_prove / prove_s:.2f} proofs/s, "
+                 f"launches {launches}; the host service {host_s * 1e3 / 4:.1f} ms a proof "
+                 f"[{h.card}]")
+
+    # -- BASELINE.json config 3: batched Schnorr -----------------------------
+    t0 = time.perf_counter()
+    per = -(-n_sigs // N_WORKERS)
+    futs = [h.pool.submit(schnorr_slice, f, min(per, n_sigs - f)) for f in range(0, n_sigs, per)]
+    made = [x for f in futs for x in f.result()]
+    sign_s = time.perf_counter() - t0
+    sigs = [(Signature.from_bytes(sb), VerificationKey(vb[:32], vb[32:])) for sb, vb in made]
+
+    def items_of(forge=False):
+        out = [(sig, schnorr_transcript(i), vk) for i, (sig, vk) in enumerate(sigs)]
+        if forge:
+            sig, t, vk = out[7]
+            out[7] = (Signature((sig.s + 1) % ex.L, sig.R), t, vk)
+        return out
+
+    spent = {}
+    real_verify = DeferredPointChecks.verify
+
+    def timed_verify(self, backend="auto", device="cuda"):
+        spent["terms"] = self.num_terms
+        h.sync()
+        t = time.perf_counter()
+        try:
+            return real_verify(self, backend, device)
+        finally:
+            h.sync()
+            spent[backend] = (time.perf_counter() - t) * 1e3
+
+    walls, msm_ms = {}, {}
+    DeferredPointChecks.verify = timed_verify
+    try:
+        for backend in ("device", "host"):
+            cb.reset_launches()
+            if backend == "device":
+                seen, restore = h.keep_calls([(qmsm, "msm", "msm")])
+            t = time.perf_counter()
+            try:
+                Signature.batch_verify(items_of(), backend=backend, seed=b"chip-smoke-3",
+                                       device=dev)
+            finally:
+                if backend == "device":
+                    restore()
+            walls[backend] = (time.perf_counter() - t) * 1e3
+            msm_ms[backend] = spent[backend]   # before the forged call's
+            if backend == "device":
+                schnorr_launches = _launched(cb)
+                check(set(schnorr_launches) == set(msm_kernels),
+                      f"Schnorr device launches {schnorr_launches}")
+            rejected(lambda: Signature.batch_verify(items_of(forge=True), backend=backend,
+                                                    seed=b"chip-smoke-3", device=dev))
+    finally:
+        DeferredPointChecks.verify = real_verify
+    msm3 = seen["msm"][0]
+    check(msm3[0].shape[0] == spent["terms"], f"the Schnorr MSM holds {spent['terms']} terms")
+    h.say(phase, f"Signature.batch_verify of {n_sigs} signatures ({spent['terms']} terms, "
+                 f"BASELINE.json config 3; signed in {sign_s:.1f} s by {N_WORKERS} worker "
+                 f"processes): accepted by device and host, one forged s rejected by both; "
+                 f"device call {walls['device']:.1f} ms, of it the MSM {msm_ms['device']:.2f} ms "
+                 f"(launches {schnorr_launches}); host call {walls['host']:.1f} ms, of it the "
+                 f"MSM {msm_ms['host']:.2f} ms [{h.card}]")
+
+    # -- the kernels at this phase's shapes ------------------------------------
+    held(msm5, f"5d's merged MSM ({msm5[0].shape[0]} points)")
+    held(msm6, f"6c's merged MSM ({msm6[0].shape[0]} points)")
+    held(msm3, f"the Schnorr MSM ({msm3[0].shape[0]} points)")
+    h.say(phase, f"kernels == plain versions at this phase's shapes: msm_table / msm_acc / "
+                 f"msm_tail on 5d's merged MSM ({msm5[0].shape[0]} points), 6c's "
+                 f"({msm6[0].shape[0]}) and the Schnorr MSM ({msm3[0].shape[0]}); max_abs_err "
+                 f"{ {k: h.err[k] for k in msm_kernels} }")
+
+    # -- the resident daemon and a fresh client process ------------------------
+    d = tempfile.mkdtemp(prefix="qq")
+    sock = os.path.join(d, "d.sock")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log = open(os.path.join(d, "daemon.log"), "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "quisquis_tpu_torch.daemon", "--socket", sock,
+                             "--device", dev.type, *daemon_shapes],
+                            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        rl = [range_lane(i) for i in range(DAEMON_RANGES)]
+        rseeds = [b"chip-smoke-daemon-%d" % i for i in range(DAEMON_RANGES)]
+        inputs = {"shuffles": [b.hex() for b in blobs], "flip": _ddh_z_offset(blobs[0]),
+                  "pairs": [[a.hex(), b.hex()] for a, b in pairs],
+                  "ranges": {"n": range_bits, "values": [v for v, _, _ in rl],
+                             "blindings": [b for _, b, _ in rl],
+                             "seeds": [s.hex() for s in rseeds]},
+                  "pwned": os.path.join(d, "pwned")}
+        with open(os.path.join(d, "in.json"), "w") as f:
+            json.dump(inputs, f)
+        client = subprocess.run([sys.executable, "-c", DAEMON_CLIENT, sock,
+                                 os.path.join(d, "in.json")],
+                                cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        check(client.returncode == 0, f"daemon client exited {client.returncode}: "
+                                      f"{client.stderr[-2000:]}")
+        out = json.loads(client.stdout.strip().splitlines()[-1])
+        check(stat.S_IMODE(os.stat(sock + ".key").st_mode) == 0o600, "the key file is 0600")
+        check(stat.S_IMODE(os.stat(d).st_mode) == 0o700, "the daemon's directory is 0700")
+        qdaemon.DeviceClient(sock).shutdown()
+        rc = proc.wait(timeout=120)
+        total_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        daemon_log = log.read()
+        log.close()
+    check(rc == 0, f"the daemon exited {rc} after shutdown: {daemon_log[-2000:]}")
+    check(out["ping"] == dev.type, f"ping {out['ping']}")
+    check(out["shuffles"] == len(blobs), "the daemon verified the shuffle entries")
+    check(out["tamper"].startswith("ValueError"), f"tampered entry: {out['tamper']}")
+    for (pb, V), (v, b, _), s in zip(out["ranges"], rl, rseeds):
+        want, want_V = RangeProof.prove_multiple(Transcript(b"RangeProof"), v, b, range_bits,
+                                                 rng=SeededRng(seed=s))
+        check(bytes.fromhex(pb) == want.to_bytes() and [bytes.fromhex(x) for x in V] == want_V,
+              "the daemon's range proofs == the host prover's")
+    check(out["tx"] == len(pairs), "the daemon verified the transactions")
+    check(out["pickle"].startswith("error"), f"pickle frame: {out['pickle']}")
+    check(not os.path.exists(inputs["pwned"]), "the pickle frame had no effect")
+    check(out["wrong_key"] == "refused", "a client with a wrong key is refused")
+    check(not out["torch_loaded"] and not out["cuda_modules"],
+          f"the client loaded torch {out['torch_loaded']}, {out['cuda_modules']}")
+    warm = [ln for ln in daemon_log.splitlines() if ln.startswith("warmup")]
+    h.say(phase, f"daemon ({' '.join(daemon_shapes)}; {'; '.join(warm)}): a fresh client "
+                 f"process pinged ({out['ping']}), verified the {len(blobs)} entries on "
+                 f"device-batched in {out['shuffle_s'][0] * 1e3:.1f} ms (first request) and "
+                 f"{out['shuffle_s'][1] * 1e3:.1f} ms (second), proved {DAEMON_RANGES} ranges "
+                 f"on device-batched in {out['range_s'] * 1e3:.1f} ms (== the host prover's), "
+                 f"verified {out['tx']} wire transactions in {out['tx_s'] * 1e3:.1f} ms; a "
+                 f"tampered entry raised ValueError, a wrong key was refused, a pickle frame was "
+                 f"answered error without effect, the key file is 0600 in a 0700 directory, the "
+                 f"client imported no torch; shutdown, exit 0; {total_s:.1f} s in all "
+                 f"[{h.card}]")
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def check(cond, what: str) -> None:
@@ -687,11 +1193,111 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     import quisquis_tpu_torch  # noqa: F401  (fails here, before any process starts, outside a checkout)
-    # the host provers (the C++ curve and STROBE under Python) run in worker
-    # processes, the range proofs beside phases 2-5 (waited for before phase
-    # 6), the sigma and shuffle proofs after phase 9's timed calls
-    with ProcessPoolExecutor(N_WORKERS, mp_context=get_context("spawn")) as pool:
-        return phases(pool)
+    become_subreaper()
+    try:
+        # the host provers (the C++ curve and STROBE under Python) run in
+        # worker processes, the range proofs beside phases 2-5 (waited for
+        # before phase 6), the sigma and shuffle proofs after phase 9's
+        # timed calls
+        with ProcessPoolExecutor(N_WORKERS, mp_context=get_context("spawn")) as pool:
+            return phases(pool)
+    finally:
+        stop_children()
+
+
+def become_subreaper() -> None:
+    """Make this process the subreaper of its descendants (Linux
+    prctl PR_SET_CHILD_SUBREAPER), so that an orphan, such as a worker of a
+    forkserver that has exited, becomes its child and stop_children finds
+    it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:   # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _descendants() -> list:
+    """This process's live descendants, children first, from /proc."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    # pid (comm) state ppid ...: comm may hold spaces and ")"
+                    state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            except OSError:
+                continue
+            if state != "Z":
+                parent[int(name)] = int(ppid)
+    out, frontier = [], [os.getpid()]
+    while frontier:
+        frontier = [pid for pid, pp in parent.items() if pp in frontier]
+        out += frontier
+    return out
+
+
+def stop_children(timeout_s: float = 30.0) -> None:
+    """Stop every process this run started and wait for it to end.
+
+    The serving layer's forkserver lives until no process holds its "alive"
+    pipe, and multiprocessing's resource tracker until no process holds its
+    pipe: this process holds both until it exits, and every worker the
+    forkserver forked holds both too. So the workers and any other
+    descendant go first: each gets `timeout_s` to exit (a closed service's
+    have exited already) and is then killed, named on stderr. Then the
+    forkserver and the tracker are stopped through multiprocessing's own
+    stop methods, which close this process's end of the pipe and wait."""
+    from multiprocessing import forkserver, resource_tracker
+
+    server, tracker = forkserver._forkserver, resource_tracker._resource_tracker
+    _reap({server._forkserver_pid, tracker._pid}, timeout_s)
+    for stop in (server._stop, tracker._stop):
+        try:
+            stop()
+        except ChildProcessError:   # it had died, and _reap collected it
+            pass
+    _reap(set(), timeout_s)
+
+
+def _reap(keep: set, timeout_s: float) -> None:
+    """Wait up to `timeout_s` for every descendant not in `keep` to exit,
+    then kill what is left; an orphan of a dead parent is this subreaper's
+    child, and the exited children are collected."""
+    import signal
+
+    deadline, killed = time.monotonic() + timeout_s, False
+    while True:
+        while True:
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
+        left = [pid for pid in _descendants() if pid not in keep]
+        if not left:
+            return
+        if time.monotonic() > deadline:
+            if killed:
+                print(f"chip_smoke: processes {left} outlived SIGKILL", file=sys.stderr)
+                return
+            for pid in left:
+                print(f"chip_smoke: killed leftover process {pid}: {_cmdline(pid)}",
+                      file=sys.stderr)
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            killed, deadline = True, time.monotonic() + timeout_s
+        time.sleep(0.1)
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")[:200]
+    except OSError:
+        return "?"
 
 
 def phases(pool) -> int:
@@ -1905,14 +2511,18 @@ def phases(pool) -> int:
     helpers = types.SimpleNamespace(
         dev=dev, card=card, err=err, same=same, stages_against_plain=stages_against_plain,
         rows_against_plain=rows_against_plain, keep_calls=keep_calls, median_ms=median_ms,
-        sync=torch.cuda.synchronize, say=say,
+        sync=torch.cuda.synchronize, say=say, bound=bound,
         profile=lambda fn, what, names: profile_line(fn, card, what, names))
     helpers.phase = 14
     built = phase_tx_build(helpers)
     helpers.phase = 15
-    phase_tx_verify(helpers, built)
+    verified = phase_tx_verify(helpers, built)
 
-    # -- phase 16 -----------------------------------------------------------
+    # -- phase 16: the serving layer and the daemon ----------------------------
+    helpers.phase, helpers.pool = 16, pool
+    phase_services(helpers, entries, verified[:TX_VERIFY], drv)
+
+    # -- phase 17 -----------------------------------------------------------
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,7 @@ versions (``exact.*_py``, ``tests/test_torch_host_curve.py``).
 
 g++ builds the library at first use into
 ``build/quisquis_tpu_torch/host_curve/<hash of the source and flags>/``,
-through :class:`.cuda_build.HostLibrary`, and ctypes loads it. Where
+through :class:`.host_build.HostLibrary`, and ctypes loads it. Where
 g++ is missing, or the build or the load fails, :func:`available` is False
 (:func:`build_error` says why) and the exact backend keeps pure Python.
 
@@ -22,7 +22,7 @@ from __future__ import annotations
 import ctypes
 from typing import List, Optional
 
-from .cuda_build import CSRC, HostLibrary
+from .host_build import CSRC, HostLibrary
 
 SOURCE = CSRC / "host_curve.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")

@@ -9,7 +9,7 @@ plain version. It keeps the whole sponge in one 208-byte context:
 
 g++ builds the library at first use into
 ``build/quisquis_tpu_torch/host_strobe/<hash of the source and flags>/``,
-through :class:`.cuda_build.HostLibrary`, and ctypes loads it. Where
+through :class:`.host_build.HostLibrary`, and ctypes loads it. Where
 g++ is missing, or the build or the load fails, :func:`available` is False (:func:`build_error` says why) and
 ``accounts/transcript.py`` keeps the pure-Python class.
 """
@@ -19,7 +19,7 @@ from __future__ import annotations
 import ctypes
 import struct
 
-from .cuda_build import CSRC, HostLibrary
+from .host_build import CSRC, HostLibrary
 
 SOURCE = CSRC / "host_strobe.cpp"
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")

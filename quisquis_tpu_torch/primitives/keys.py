@@ -5,7 +5,6 @@ reference src/ristretto/keys.rs:30-282) re-designed for this framework:
 host objects carry canonical compressed bytes (wire format identical to the
 reference: pk = gr_bytes || grsk_bytes, 64 bytes) and cached decompressed
 exact points; batch/device variants live in :mod:`quisquis_tpu_torch.ops`.
-The schnorr signing methods are not part of this copy yet.
 
 Notable reference quirks preserved for parity:
 * `PublicKey + PublicKey` is defined as point *subtraction*
@@ -128,6 +127,17 @@ class RistrettoPublicKey:
     def verify_keypair(self, sk: RistrettoSecretKey) -> None:
         if ex.ristretto_encode(ex.pt_mul(sk.scalar, self.gr_point)) != self.grsk:
             raise ValueError("Invalid Account::Keypair Verification Failed")
+
+    def sign_msg(self, msg: bytes, sk: RistrettoSecretKey, label: bytes,
+                 rng=None):
+        from .schnorr import Signature, VerificationKey
+        vk = VerificationKey(self.gr, self.grsk)
+        return Signature.sign_message(label, msg, vk, sk.scalar, rng=rng)
+
+    def verify_msg(self, msg: bytes, signature, label: bytes) -> None:
+        from .schnorr import Signature, VerificationKey
+        vk = VerificationKey(self.gr, self.grsk)
+        signature.verify_message(label, msg, vk)
 
     # -- operators ----------------------------------------------------------
 

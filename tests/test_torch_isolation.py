@@ -47,13 +47,13 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     line = proc.stdout.strip().splitlines()[-1]
     assert line.endswith("FORBIDDEN []"), line
-    assert int(line.split()[1]) >= 59
+    assert int(line.split()[1]) >= 68
     # an import inside a function runs only when the function does: no source
     # line of the port imports either, wherever it stands
     forbidden = re.compile(r"^\s*(import|from)\s+(jax|quisquis_tpu)(\.|\s|$)", re.M)
     sources = glob.glob(os.path.join(REPO, "quisquis_tpu_torch", "**", "*.py"), recursive=True)
     sources.append(os.path.join(REPO, "chip_smoke.py"))
-    assert len(sources) >= 61
+    assert len(sources) >= 70
     for path in sources:
         with open(path) as f:
             found = forbidden.search(f.read())
@@ -129,6 +129,26 @@ def test_default_device_raises_without_gpu():
             batch_create_transactions([{}], range_backend=backend)   # before any host work
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             batch_verify_transactions([], backend=backend)
+    # the serving layer: every device backend resolves its device before
+    # it starts a pool or reads a request
+    from quisquis_tpu_torch import daemon, serving
+    from quisquis_tpu_torch.primitives.schnorr import Signature
+    from quisquis_tpu_torch.utils.warmup import warmup
+    for backend in ("device", "device-batched"):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            serving.VerificationService(workers=1, backend=backend)
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            serving.ShuffleVerificationService(workers=1, backend=backend)
+    for backend in ("auto", "device-batched"):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            serving.RangeProvingService(backend=backend)
+    for backend in ("auto", "device"):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            Signature.batch_verify([], backend=backend)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        warmup([("shuffle", 2, 2)])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        daemon.DeviceDaemon("/nonexistent/d.sock")
     assert resolve_device("cpu").type == "cpu"
 
 
