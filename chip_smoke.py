@@ -129,14 +129,27 @@ Phases, each printed on its own line:
      transactions, with a tampered entry, a wrong key and a pickle frame
      refused, the key file 0600 in a 0700 directory, no torch in the
      client, and shutdown ending the daemon with 0;
- 17. one JSON line per contract with every kernel's numbers, then the
+ 17. the sharded paths (quisquis_tpu_torch/parallel) at these phases'
+     widths, on 2 ranks of parallel.launch sharing this card (gloo; NCCL
+     refuses two ranks on one GPU) and on 1 rank over NCCL: sharded_msm of
+     phase 16's Schnorr MSM (65,535 points) equal to the single-device MSM
+     at the canonical value, Signature.batch_verify("sharded") of config 3
+     (a forged signature rejected), range and shuffle verify_sharded on
+     phases 8 and 11's batches (a tampered lane on rank 1 rejected),
+     prove_sharded of both provers equal to phases 12-13's proofs byte for
+     byte and field for field, batch_verify_transactions("sharded") on
+     phase 15's 32 transactions (a tampered one rejected), every rejection
+     alike on every rank and every kernel of each path launched on every
+     rank; medians of 3 by the host clock beside the single-device times;
+ 18. one JSON line per contract with every kernel's numbers, then the
      final status line.
 
 Any failed check raises, and the script exits non-zero. It also exits
 non-zero without a GPU or outside a checkout of the repository. Whether it
 passes or fails, it stops every process it started before it returns: the
-worker pools, the serving layer's forkserver and multiprocessing's resource
-tracker, and (as the children's subreaper) any orphan of theirs.
+worker pools, phase 17's ranks, the serving layer's forkserver and
+multiprocessing's resource tracker, and (as the children's subreaper) any
+orphan of theirs.
 """
 
 from __future__ import annotations
@@ -188,6 +201,9 @@ SERVICE_REPS = 3                               # timed calls of each service
 DAEMON_SHAPES = ("shuffle:8:16", "range-prove:64:16:32")   # the daemon's warm shapes
 DAEMON_RANGES = 4                              # range proofs the daemon's client asks for
 SHUFFLE_KERNELS = ("scalar_mul", "msm_table", "msm_acc", "msm_tail", "keccak_f1600")
+SHARDED_WORLD = 2                              # ranks on the one card (phase 17)
+SHARDED_REPS = 3                               # timed calls of each sharded step
+SHARDED_PROGRAM = "quisquis_tpu_torch.parallel.programs:run_calls"
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 INT32_LANES_PER_SM = 64     # Hopper SM: 4 partitions x 16 INT32 lanes
 # 32x32->64 limb products of one field multiply and one square
@@ -697,7 +713,8 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
     a fresh client process; the merged MSMs and the Schnorr MSM held to the
     plain MSM stages. `h`: the run's helpers, with `pool` (the worker
     processes). Every service runs `workers` processes (default: this
-    machine's CPUs)."""
+    machine's CPUs). Returns the Schnorr batch (`items_of(forge)`), its
+    device MSM's inputs and the device call's ms."""
     from quisquis_tpu_torch import daemon as qdaemon
     from quisquis_tpu_torch import serving
     from quisquis_tpu_torch.accounts.accounts import Account
@@ -891,12 +908,12 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
     spent = {}
     real_verify = DeferredPointChecks.verify
 
-    def timed_verify(self, backend="auto", device="cuda"):
+    def timed_verify(self, backend="auto", device="cuda", mesh=None):
         spent["terms"] = self.num_terms
         h.sync()
         t = time.perf_counter()
         try:
-            return real_verify(self, backend, device)
+            return real_verify(self, backend, device, mesh)
         finally:
             h.sync()
             spent[backend] = (time.perf_counter() - t) * 1e3
@@ -927,6 +944,7 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
         DeferredPointChecks.verify = real_verify
     msm3 = seen["msm"][0]
     check(msm3[0].shape[0] == spent["terms"], f"the Schnorr MSM holds {spent['terms']} terms")
+    schnorr = types.SimpleNamespace(items_of=items_of, msm=msm3, call_ms=walls["device"])
     h.say(phase, f"Signature.batch_verify of {n_sigs} signatures ({spent['terms']} terms, "
                  f"BASELINE.json config 3; signed in {sign_s:.1f} s by {N_WORKERS} worker "
                  f"processes): accepted by device and host, one forged s rejected by both; "
@@ -1008,6 +1026,132 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
                  f"client imported no torch; shutdown, exit 0; {total_s:.1f} s in all "
                  f"[{h.card}]")
     shutil.rmtree(d, ignore_errors=True)
+    return schnorr
+
+
+def phase_sharded(h, d, world=SHARDED_WORLD, reps=SHARDED_REPS):
+    """The sharded paths (quisquis_tpu_torch/parallel) at the earlier
+    phases' full widths: `world` ranks of parallel.launch on this one card
+    (gloo: NCCL refuses two ranks on one GPU), then one rank over NCCL.
+    Every rank's result must equal the single-device one (the MSM at the
+    canonical value, proofs byte for byte and field for field), every
+    tampered batch is rejected on every rank, and every kernel of each path
+    launched on every rank; medians of `reps` calls by the host clock beside
+    the single-device time of the same call. `d`: the earlier phases'
+    batches and single-device times."""
+    from quisquis_tpu_torch import parallel
+    from quisquis_tpu_torch.ops import exact as ex
+    from quisquis_tpu_torch.ops import msm as qmsm
+    from quisquis_tpu_torch.ops import point as pt
+    from quisquis_tpu_torch.transaction import batch_verify_transactions
+
+    phase, dev, t_phase = h.phase, h.dev, time.perf_counter()
+    msm_kernels = ("msm_table", "msm_acc", "msm_tail")
+    nib, pts = d.schnorr.msm
+    nib, pts = nib.cpu(), pt.ExtPoint(*(c.cpu() for c in pts))
+
+    def encode(p):
+        return ex.ristretto_encode(pt.to_exact_batch(pt.ExtPoint(*(c[None].cpu() for c in p)))[0])
+
+    want_msm = encode(qmsm.msm(nib.to(dev), pt.ExtPoint(*(c.to(dev) for c in pts))))
+    single = dict(d.single_ms)
+    single["msm"] = h.median_ms(lambda: qmsm.msm(nib.to(dev), pt.ExtPoint(*(c.to(dev)
+                                                                            for c in pts))),
+                                reps=reps)[0]
+    single["transactions"] = h.median_ms(lambda: batch_verify_transactions(
+        d.txs, backend="device", seed=b"chip-smoke-sharded", device=dev), reps=reps)[0]
+    proofs, commitments = d.range_verify
+    lane = len(proofs) * 3 // 4                       # a lane of the last rank
+    bad_range = list(proofs)
+    blob = bytearray(proofs[lane].to_bytes())
+    blob[130] ^= 1                                    # t_x
+    bad_range[lane] = type(proofs[0]).from_bytes(bytes(blob))
+    bad_shuffles = shuffle_tampered(d.shuffles, "ddh z", len(d.shuffles) * 3 // 4)
+    range_args, range_proofs, range_v = d.range_prove
+    shuffle_args, shuffle_proofs = d.shuffle_prove
+    seed = b"chip-smoke-sharded"
+    calls = [
+        ("collectives", "collectives", (160 * nib.shape[0],), 1),  # the accumulator's bytes
+        ("msm", "msm", (nib, pts)),
+        ("schnorr", "schnorr", (d.schnorr.items_of(), b"chip-smoke-3")),
+        ("schnorr forged", "schnorr", (d.schnorr.items_of(forge=True), b"chip-smoke-3"), 1),
+        ("range verify", "range_verify", (RANGE_N, RANGE_M, proofs, commitments, seed)),
+        ("range verify tampered", "range_verify", (RANGE_N, RANGE_M, bad_range, commitments,
+                                                   seed), 1),
+        ("shuffle verify", "shuffle_verify", (SHUFFLE_M, d.shuffles, seed)),
+        ("shuffle verify tampered", "shuffle_verify", (SHUFFLE_M, bad_shuffles, seed), 1),
+        ("range prove", "range_prove", (RANGE_N, RANGE_M, *range_args)),
+        ("shuffle prove", "shuffle_prove", (SHUFFLE_M, *shuffle_args)),
+        ("transactions", "transactions", (d.txs, seed, RANGE_N)),
+        ("transactions tampered", "transactions",
+         (tx_tampered(d.txs, "sigma response", 3), seed, RANGE_N), 1),
+    ]
+    kernels = {"msm": msm_kernels, "schnorr": msm_kernels, "range verify": SLICE2,
+               "shuffle verify": SHUFFLE_KERNELS, "range prove": SLICE2, "shuffle prove": SLICE2,
+               "transactions": msm_kernels}
+    t0 = time.perf_counter()
+    reports = parallel.launch(SHARDED_PROGRAM, world, dev.type, timeout_s=600, args=(calls, reps))
+    world_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = parallel.launch(SHARDED_PROGRAM, 1, dev.type, timeout_s=300,
+                           args=([c for c in calls if c[0] in ("collectives", "msm",
+                                                               "range verify")], reps))
+    nccl_s = time.perf_counter() - t0
+    check([r["backend"] for r in reports] == ["gloo"] * world and nccl[0]["backend"] == "nccl",
+          f"backends: {[r['backend'] for r in reports]} and {nccl[0]['backend']}")
+
+    def outcomes(reps_, label):
+        return [r[label]["outcome"] for r in reps_]
+
+    for reps_ in (reports, nccl):
+        check(outcomes(reps_, "msm") == [("ok", want_msm)] * len(reps_),
+              f"sharded_msm of {nib.shape[0]} points == the single-device msm (canonical)")
+        check(outcomes(reps_, "range verify") == [("ok", None)] * len(reps_),
+              "range verify_sharded accepts the honest batch")
+    want = {"schnorr": None, "range verify": None, "shuffle verify": None, "transactions": None,
+            "range prove": ([p.to_bytes() for p in range_proofs], list(range_v)),
+            "shuffle prove": [tuple(x) for x in shuffle_proofs]}
+    for label, value in want.items():
+        got = outcomes(reports, label)
+        if label == "shuffle prove":
+            got = [(o[0], [tuple(x) for x in o[1]]) if o[0] == "ok" else o for o in got]
+        check(got == [("ok", value)] * world, f"sharded {label} == the single-device result")
+    for label in ("schnorr forged", "range verify tampered", "shuffle verify tampered",
+                  "transactions tampered"):
+        got = outcomes(reports, label)
+        check(got[0][0] == "ValueError" and got == [got[0]] * world,
+              f"{label}: rejected alike on every rank ({got})")
+    for reps_ in (reports, nccl):
+        for r in reps_:
+            for label, names in kernels.items():
+                if label in r:
+                    check(set(r[label]["launches"]) == set(names),
+                          f"rank launches of {label}: {r[label]['launches']}")
+    lines = []
+    for label in ("msm", "schnorr", "range verify", "shuffle verify", "range prove",
+                  "shuffle prove", "transactions"):
+        ms = [r[label]["median_s"] * 1e3 for r in reports]
+        line = (f"{label}: world {world} median of {reps} {max(ms):.1f} ms (ranks "
+                f"{' / '.join(f'{m:.1f}' for m in ms)}), single device {single[label]:.1f} ms")
+        if label in nccl[0]:
+            line += f", world 1 NCCL {nccl[0][label]['median_s'] * 1e3:.1f} ms"
+        lines.append(line + f"; launches a rank {reports[0][label]['launches']}")
+    h.say(phase, f"sharded paths on {world} ranks sharing this card (backend gloo, the host "
+                 f"staging the collectives) and on 1 rank (backend nccl): every result == the "
+                 f"single-device one (sharded_msm of {nib.shape[0]} points at the canonical "
+                 f"value, {len(range_proofs)} range proofs byte for byte, {len(shuffle_proofs)} "
+                 f"shuffle proofs field for field, Schnorr config 3, range and shuffle "
+                 f"verify_sharded, {len(d.txs)} transactions accepted); a forged signature, a "
+                 f"tampered lane on rank 1 of each verifier and a tampered transaction rejected "
+                 f"alike on every rank; launches {world_s:.1f} s (world {world}) and "
+                 f"{nccl_s:.1f} s (world 1) with start-up [{h.card}]")
+    for name, reps_ in ((f"world {world}, gloo", reports), ("world 1, nccl", nccl)):
+        ops = reps_[0]["collectives"]["outcome"][1]
+        h.say(phase, f"collectives, {name}, median of 20 on rank 0: "
+                     + ", ".join(f"{k} {v:.3f} ms" for k, v in ops.items()) + f" [{h.card}]")
+    for line in lines:
+        h.say(phase, line + f" [{h.card}]")
+    h.say(phase, f"phase {phase} took {time.perf_counter() - t_phase:.1f} s")
 
 
 def check(cond, what: str) -> None:
@@ -1821,6 +1965,7 @@ def phases(pool) -> int:
 
     walls = sorted(timed_verify() for _ in range(7))
     wall = statistics.median(walls)
+    single_ms = {"range verify": wall * 1e3}   # single-device medians, for phase 17
     say(9, f"verify of {RANGE_BATCH} proofs (n={RANGE_N}, m={RANGE_M}), host clock, 7 calls: "
            f"median {wall * 1e3:.1f} ms (min {walls[0] * 1e3:.1f}, max {walls[-1] * 1e3:.1f}) = "
            f"{RANGE_BATCH / wall:.1f} range-proof verifications/s; launches per verify "
@@ -2098,6 +2243,7 @@ def phases(pool) -> int:
 
     walls = sorted(timed_shuffle() for _ in range(7))
     wall = statistics.median(walls)
+    single_ms["shuffle verify"] = wall * 1e3
     t = time.perf_counter()
     packed = dsv._pack(entries, None)
     pack_s = time.perf_counter() - t
@@ -2371,6 +2517,7 @@ def phases(pool) -> int:
             f"{rp_launches}) [{card}]")
     args = [range_args() for _ in range(PROVE_REPS)]
     med, lo, hi = median_ms(lambda: drp.prove(*args.pop()), PROVE_REPS)
+    single_ms["range prove"] = med
     t = time.perf_counter()
     packed = drp._pack(*range_args(), None)
     pack_ms = (time.perf_counter() - t) * 1e3
@@ -2477,6 +2624,7 @@ def phases(pool) -> int:
             f"{bound(b8 * KECCAK_OPS_PER_STATE, b8 * 400)[0]:.5f} ms [{card}]")
     args = [shuffle_args(sh8) for _ in range(PROVE_REPS)]
     med, lo, hi = median_ms(lambda: dsp.prove(*args.pop()), PROVE_REPS)
+    single_ms["shuffle prove"] = med
     t = time.perf_counter()
     packed = dsp._pack(*shuffle_args(sh8))
     pack_ms = (time.perf_counter() - t) * 1e3
@@ -2520,9 +2668,17 @@ def phases(pool) -> int:
 
     # -- phase 16: the serving layer and the daemon ----------------------------
     helpers.phase, helpers.pool = 16, pool
-    phase_services(helpers, entries, verified[:TX_VERIFY], drv)
+    schnorr = phase_services(helpers, entries, verified[:TX_VERIFY], drv)
 
-    # -- phase 17 -----------------------------------------------------------
+    # -- phase 17: the sharded paths, two ranks on this card and one over NCCL
+    helpers.phase = 17
+    single_ms["schnorr"] = schnorr.call_ms
+    phase_sharded(helpers, types.SimpleNamespace(
+        schnorr=schnorr, range_verify=(proofs, commitments), shuffles=entries,
+        range_prove=(range_args(), proofs_d, vlists_d), shuffle_prove=(shuffle_args(sh8), got8),
+        txs=verified[:TX_VERIFY], single_ms=single_ms))
+
+    # -- phase 18 -----------------------------------------------------------
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -203,40 +203,40 @@ class DeferredPointChecks:
         sbuf, pbuf, _ = self.export_wire()
         return sbuf, pbuf
 
-    def verify(self, backend: str = "auto", device="cuda") -> None:
+    def verify(self, backend: str = "auto", device="cuda", mesh=None) -> None:
         """Evaluate the combined MSM; raise ValueError if non-identity.
 
-        backend: "device" (the MSM kernels on ``device``), "host" (the
-        exact backend's Pippenger, on the C++ curve where g++ built it) or
-        "auto": "device" from AUTO_DEVICE_MIN_TERMS coalesced terms, else
-        "host" (``device`` is resolved first either way, so the default
-        raises without a GPU). On the H100 (host / device ms, two runs) the
-        C++ host led at 8 terms (0.27-0.34 / 2.50-2.59), 64 (1.74-1.96 /
-        2.73-4.56) and 128 (2.18-2.75 / 2.55-3.43), the device narrowly at
-        192 (3.16-3.58 / 2.90-3.00) and from 256 (3.86-4.34 / 2.88-3.41)
-        on, and on the accumulators that verify_transaction collects from
-        one transaction: 559 terms (1 + 1 values over 9 accounts;
-        7.57-9.69 / 4.70-6.30), 819 (2 + 2 over 9; 10.00-14.65 /
-        4.34-6.96), 1,449 (1 + 1 over 64; 12.60-14.73 / 5.81-5.89) and
-        1,467 (4 + 4 over 16; 11.97-12.30 / 6.01-6.04). The host's
-        threaded Pippenger leads again from about 14,500 terms (41.8-51.6
-        / 49.0-61.6 at 14,575), a size that no caller of "auto" reaches
-        (``python3 -m quisquis_tpu_torch.auto_rules``; PERF.md §5). The
-        JAX package's crossover was measured on a TPU and is not carried
-        over. "sharded" waits for multi-GPU support.
+        backend: "device" (the MSM kernels on ``device``), "host" (the exact
+        backend's Pippenger, on the C++ curve where g++ built it), "sharded"
+        (the point axis split over the ranks of ``mesh``, a
+        :class:`~quisquis_tpu_torch.parallel.Mesh`; every rank of the mesh
+        calls it and every rank returns or raises alike) or "auto": "device"
+        from AUTO_DEVICE_MIN_TERMS coalesced terms, else "host" (``device`` is
+        resolved first either way, so the default raises without a GPU). On the
+        H100 (host / device ms, two runs) the C++ host led at 8 terms
+        (0.27-0.34 / 2.50-2.59), 64 (1.74-1.96 / 2.73-4.56) and 128 (2.18-2.75
+        / 2.55-3.43), the device narrowly at 192 (3.16-3.58 / 2.90-3.00) and
+        from 256 (3.86-4.34 / 2.88-3.41) on, and on the accumulators that
+        verify_transaction collects from one transaction: 559 terms (1 + 1
+        values over 9 accounts; 7.57-9.69 / 4.70-6.30), 819 (2 + 2 over 9;
+        10.00-14.65 / 4.34-6.96), 1,449 (1 + 1 over 64; 12.60-14.73 /
+        5.81-5.89) and 1,467 (4 + 4 over 16; 11.97-12.30 / 6.01-6.04). The
+        host's threaded Pippenger leads again from about 14,500 terms
+        (41.8-51.6 / 49.0-61.6 at 14,575), a size that no caller of "auto"
+        reaches (``python3 -m quisquis_tpu_torch.auto_rules``; PERF.md §5). The
+        JAX package's crossover was measured on a TPU and is not carried over.
         """
-        if backend == "sharded":
-            raise NotImplementedError(
-                "backend 'sharded': multi-GPU MSM (ROADMAP A15) is not ported yet")
         if backend == "auto":
             resolve_device(device)
             backend = "device" if self.num_terms >= AUTO_DEVICE_MIN_TERMS else "host"
-        if backend not in ("host", "device"):
+        if backend not in ("host", "device", "sharded"):
             raise ValueError(f"unknown backend {backend!r}")
         if self.num_terms == 0:
             return
         if backend == "device":
             ok = self._verify_device_wire(device)
+        elif backend == "sharded":
+            ok = self._verify_sharded(mesh)
         else:
             scalars, points = self._all_terms()
             # every term coalesced away: vacuously identity
@@ -246,24 +246,44 @@ class DeferredPointChecks:
                 "Batched point-check verification failed; one of: "
                 + "; ".join(sorted(set(self.labels))))
 
-    def _verify_device_wire(self, device="cuda") -> bool:
-        """Device MSM straight from wire buffers.
-
-        Conversion is numpy byte reshaping (no Python bigints): scalars to
-        nibble digits, point coordinates to field limbs; the identity check
-        runs on the device and only one boolean comes back. No padding: the
-        MSM pads its rows to whole tiles itself, at any term count.
-        """
-        dev = resolve_device(device)
-        sbuf, pbuf = self._terms_wire()
+    @staticmethod
+    def _wire_tensors(sbuf: bytes, pbuf: bytes, device):
+        """Wire buffers -> (nibbles int32 [n, 64], points [n]) on ``device``,
+        by numpy byte reshaping (no Python bigints)."""
         n = len(sbuf) // 32
-        if n == 0:
-            return True
         nib = pt.scalar_to_nibbles(np.frombuffer(sbuf, np.uint8).reshape(n, 32))
         wire = np.frombuffer(pbuf, np.uint8).reshape(n, 4, 32)
-        points = pt.ExtPoint(*(fe.from_bytes(wire[:, i], dev) for i in range(4)))
-        out = qmsm.msm(torch.as_tensor(nib, device=dev), points)
+        points = pt.ExtPoint(*(fe.from_bytes(wire[:, i], device) for i in range(4)))
+        return torch.as_tensor(nib, device=device), points
+
+    def _verify_device_wire(self, device="cuda") -> bool:
+        """Device MSM straight from wire buffers; the identity check runs on
+        the device and only one boolean comes back. No padding: the MSM
+        pads its rows to whole tiles itself, at any term count."""
+        dev = resolve_device(device)
+        sbuf, pbuf = self._terms_wire()
+        if not sbuf:
+            return True
+        out = qmsm.msm(*self._wire_tensors(sbuf, pbuf, dev))
         return bool(pt.is_identity(out))
+
+    def _verify_sharded(self, mesh) -> bool:
+        """The sharded MSM (``parallel.sharded_msm``) over rank 0's terms.
+
+        Every rank replays its own transcripts into its own accumulator, but
+        an accumulator without a pinned seed draws its own weights, and a
+        check whose terms fall on two ranks must carry one weight. So rank
+        0's terms are broadcast and every rank evaluates that one weighted
+        sum; rank 0's weights are as unpredictable as a single process's."""
+        if mesh is None:
+            raise ValueError("sharded backend requires a mesh")
+        from ..parallel.sharded_msm import sharded_msm
+
+        sbuf, pbuf = self._terms_wire()
+        sbuf, pbuf = mesh.broadcast_bytes(sbuf), mesh.broadcast_bytes(pbuf)
+        if not sbuf:
+            return True  # every term coalesced away: vacuously identity
+        return bool(pt.is_identity(sharded_msm(mesh, *self._wire_tensors(sbuf, pbuf, "cpu"))))
 
 
 class DeviceBatchCollector:

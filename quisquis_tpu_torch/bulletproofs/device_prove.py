@@ -287,6 +287,36 @@ class DeviceRangeProver:
         arrays, frame = self._pack(values, blindings, rngs, transcripts)
         return self._decode(*self._run(arrays, frame))
 
+    def prove_sharded(self, values: Sequence[Sequence[int]], blindings: Sequence[Sequence[int]],
+                      rngs: Sequence, mesh, transcripts=None
+                      ) -> Tuple[List[RangeProof], List[List[bytes]]]:
+        """prove() with the lane axis split over the ranks of ``mesh`` (a
+        ``parallel.Mesh``): every rank calls it with the whole batch, packs
+        and proves only its own lanes on a cached prover of B / size lanes
+        on its device, and gathers every lane's bytes, so every rank returns
+        the whole (proofs, V lists), byte-identical to prove(). Lane i's rng
+        is drawn from only on the rank that proves lane i. A rejected input
+        raises its ValueError on every rank."""
+        B = self.batch
+        if B % mesh.size:
+            raise ValueError(f"batch {B} not divisible by {mesh.size} devices")
+        if len(values) != B or len(blindings) != B or len(rngs) != B:
+            raise ValueError("lane count mismatch")
+        lanes = mesh.local_slice(B)
+        local = get_device_range_prover(self.n, self.m, B // mesh.size, self.label,
+                                        device=mesh.device)
+        error = ""
+        try:    # a bad input is shared, not raised: the other ranks wait for this one
+            comp, scal = local._run(*local._pack(
+                values[lanes], blindings[lanes], rngs[lanes],
+                None if transcripts is None else transcripts[lanes]))
+        except ValueError as e:
+            error = str(e)
+        error = mesh.first_error(error)
+        if error:
+            raise ValueError(error)
+        return self._decode(mesh.gather_rows(comp), mesh.gather_rows(scal))
+
     def _decode(self, comp: np.ndarray, scal: np.ndarray):
         m, k = self.m, self.k
         proofs, vlists = [], []

@@ -268,6 +268,40 @@ class DeviceRangeVerifier:
         if not self._run(comp, scal, weights, states, frame):
             raise ValueError("Device batched range-proof verification failed")
 
+    def verify_sharded(self, proofs: Sequence, value_commitments: Sequence[Sequence[bytes]],
+                       mesh, transcripts=None, rng: Optional[object] = None) -> None:
+        """verify() with the lane axis split over the ranks of ``mesh`` (a
+        ``parallel.Mesh``): every rank calls it with the whole batch, packs
+        only its own lanes and runs them on a cached verifier of B / size
+        lanes on its device; the one collective shares the first failure.
+        Every rank draws the whole batch's weights from ``rng`` and takes
+        its lanes' rows, so with a seeded rng each lane's weights are those
+        of verify(). Raises ValueError on every rank unless every lane on
+        every rank passes."""
+        B = self.batch
+        if B % mesh.size:
+            raise ValueError(f"batch {B} not divisible by {mesh.size} devices")
+        if len(proofs) != B or len(value_commitments) != B:
+            raise ValueError(f"batch size mismatch: {len(proofs)} != {B}")
+        nbytes = B * 2 * 64
+        wbytes = os.urandom(nbytes) if rng is None else rng.fill_bytes(nbytes)
+        lanes = mesh.local_slice(B)
+        local = get_device_range_verifier(self.n, self.m, B // mesh.size, self.label,
+                                          device=mesh.device)
+        error = ""
+        try:    # a bad input is shared, not raised: the other ranks wait for this one
+            comp, scal, states, frame = local._pack(
+                proofs[lanes], value_commitments[lanes],
+                None if transcripts is None else transcripts[lanes])
+            weights = np.frombuffer(wbytes, np.uint8).reshape(B, 2, 64)[lanes].copy()
+            if not local._run(comp, scal, weights, states, frame):
+                error = "Device batched range-proof verification failed (sharded)"
+        except ValueError as e:
+            error = str(e)
+        error = mesh.first_error(error)
+        if error:
+            raise ValueError(error)
+
 
 # ---------------------------------------------------------------------------
 # dispatch: verifier instances by shape

@@ -4,8 +4,9 @@ The reference has no config system: N = 9 (3x3), 64-bit ranges, the
 generator capacities and the base pk are compile-time constants. The JAX
 package makes them configuration with the reference's values as defaults;
 this is the port's copy of its protocol fields. The JAX package's tile sizes
-and mesh axis are TPU settings and have no counterpart here: each CUDA
-kernel's block size is a constant in its source.
+are TPU settings and have no counterpart here: each CUDA kernel's block size
+is a constant in its source. Its mesh axis name has none either: a mesh of
+the port is a torch.distributed group of ranks (``parallel.Mesh``).
 """
 
 from __future__ import annotations

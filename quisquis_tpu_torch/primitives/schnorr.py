@@ -99,23 +99,20 @@ class Signature:
         signature, coalesced on the shared points).
 
         backend: that of ``DeferredPointChecks.verify``: "device" (the MSM
-        kernels on ``device``), "host" (the C++ curve's Pippenger) or
-        "auto" (``device`` resolved first, so the default raises without a
-        GPU; then by the coalesced term count). ``mesh=`` and "sharded"
-        wait for multi-GPU support (ROADMAP A15)."""
+        kernels on ``device``), "host" (the C++ curve's Pippenger),
+        "sharded" (the MSM's point axis split over the ranks of ``mesh``, a
+        ``parallel.Mesh``; every rank replays every transcript) or "auto"
+        (``device`` resolved first, so the default raises without a GPU;
+        then by the coalesced term count)."""
         from ..accounts.deferred import DeferredPointChecks
         from ..device import resolve_device
 
-        if backend == "sharded" or mesh is not None:
-            raise NotImplementedError(
-                "backend 'sharded' / mesh=: multi-GPU verification (ROADMAP A15) "
-                "is not ported yet")
         if backend in ("auto", "device"):
             resolve_device(device)   # before the transcript replay
         defer = DeferredPointChecks(seed)
         for sig, transcript, vk in items:
             sig.verify_deferred(transcript, vk, defer)
-        defer.verify(backend=backend, device=device)
+        defer.verify(backend=backend, device=device, mesh=mesh)
 
     # -- message-oriented API ------------------------------------------------
 

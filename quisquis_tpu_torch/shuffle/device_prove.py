@@ -685,6 +685,35 @@ class DeviceShuffleProver:
         if an account point does not decode."""
         return self._decode(*self._run(*self._pack(shuffles, rngs, transcripts)))
 
+    def prove_sharded(self, shuffles: Sequence, rngs: Sequence, mesh,
+                      transcripts: Optional[Sequence] = None):
+        """prove() with the lane axis split over the ranks of ``mesh`` (a
+        ``parallel.Mesh``): every rank calls it with the whole batch, packs
+        and proves only its own lanes on a cached prover of B / size lanes
+        on its device, and gathers every lane's bytes, so every rank returns
+        all B (ShuffleProof, ShuffleStatement) pairs, equal to prove()'s.
+        Lane i's rng is drawn from only on the rank that proves lane i. An
+        account point that does not decode, or another rejected input,
+        raises its ValueError on every rank."""
+        B = self.batch
+        if B % mesh.size:
+            raise ValueError(f"batch {B} not divisible by {mesh.size} devices")
+        if len(shuffles) != B or len(rngs) != B:
+            raise ValueError("lane count mismatch")
+        lanes = mesh.local_slice(B)
+        local = get_device_shuffle_prover(self.m, B // mesh.size, self.proof_label,
+                                          self.transcript_label, device=mesh.device)
+        error = ""
+        try:    # a bad input is shared, not raised: the other ranks wait for this one
+            pts_b, scal_b = local._run(*local._pack(
+                shuffles[lanes], rngs[lanes], None if transcripts is None else transcripts[lanes]))
+        except ValueError as e:
+            error = str(e)
+        error = mesh.first_error(error)
+        if error:
+            raise ValueError(error)
+        return self._decode(mesh.gather_rows(pts_b), mesh.gather_rows(scal_b))
+
     def warmup(self) -> None:
         """Build the kernels (on CUDA) and the basis tables, and run the
         program once on zero inputs (zero bytes decode as the identity and

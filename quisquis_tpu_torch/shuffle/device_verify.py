@@ -719,6 +719,38 @@ class DeviceShuffleVerifier:
         if not self._run(comp, scal, weights.copy(), states, frame):
             raise ValueError("Device batched shuffle verification failed")
 
+    def verify_sharded(self, entries, mesh, transcripts=None, rng=None) -> None:
+        """verify() with the lane axis split over the ranks of ``mesh`` (a
+        ``parallel.Mesh``): every rank calls it with the whole batch, packs
+        only its own lanes and runs them on a cached verifier of B / size
+        lanes on its device; the one collective shares the first failure.
+        Every rank draws the whole batch's weights from ``rng`` and takes
+        its lanes' rows, so with a seeded rng each lane's weights are those
+        of verify(). Raises ValueError on every rank unless every lane on
+        every rank passes."""
+        B = self.batch
+        if B % mesh.size:
+            raise ValueError(f"batch {B} not divisible by {mesh.size} devices")
+        if len(entries) != B:
+            raise ValueError(f"batch size mismatch: {len(entries)} != {B}")
+        nbytes = B * self.NCHECKS * 64
+        wbytes = os.urandom(nbytes) if rng is None else rng.fill_bytes(nbytes)
+        lanes = mesh.local_slice(B)
+        local = get_device_shuffle_verifier(self.m, B // mesh.size, self.proof_label,
+                                            self.transcript_label, device=mesh.device)
+        error = ""
+        try:    # a bad input is shared, not raised: the other ranks wait for this one
+            comp, scal, states, frame = local._pack(
+                entries[lanes], None if transcripts is None else transcripts[lanes])
+            weights = np.frombuffer(wbytes, np.uint8).reshape(B, self.NCHECKS, 64)[lanes]
+            if not local._run(comp, scal, weights.copy(), states, frame):
+                error = "Device batched shuffle verification failed (sharded)"
+        except ValueError as e:
+            error = str(e)
+        error = mesh.first_error(error)
+        if error:
+            raise ValueError(error)
+
 
 # ---------------------------------------------------------------------------
 # dispatch: verifier instances by shape

@@ -491,7 +491,7 @@ def batch_create_shuffle_proofs(shuffles, rngs=None, backend="auto", device="cud
 
 
 def batch_verify_shuffle_proofs(entries, xpc_gens=None, backend="auto",
-                                seed=None, device="cuda") -> None:
+                                seed=None, device="cuda", mesh=None) -> None:
     """Verify many shuffle proofs at once; raises ValueError if any fails.
 
     `entries`: iterable of (proof, verifier, statement, inputs, outputs).
@@ -512,7 +512,10 @@ def batch_verify_shuffle_proofs(entries, xpc_gens=None, backend="auto",
         up to 64; "device-batched" led at 64 of side 8 (614.5-897.3
         against 890.4-1,159.7 ms) (``python3 -m
         quisquis_tpu_torch.auto_rules``; PERF.md §5).
-      - "sharded" waits for multi-GPU support (ROADMAP A15).
+      - "sharded": each proof's transcript is replayed here, on every rank
+        of ``mesh`` (a ``parallel.Mesh``), and the accumulator's one MSM
+        runs with its point axis split over the ranks
+        (DeferredPointChecks.verify).
 
     The eager equivalent loops `proof.verify(...)` per proof (reference
     behavior, reference src/shuffle/shuffle.rs:547-712).
@@ -524,10 +527,7 @@ def batch_verify_shuffle_proofs(entries, xpc_gens=None, backend="auto",
         resolve_device(device)
         wide = all(len(ins) >= 64 for _, _, _, ins, _ in entries)
         backend = "device-batched" if wide and len(entries) >= AUTO_DEVICE_PROOFS else "host"
-    if backend == "sharded":
-        raise NotImplementedError(
-            "backend 'sharded': multi-GPU verification (ROADMAP A15) is not ported yet")
-    if backend not in ("device-batched", "host", "device"):
+    if backend not in ("device-batched", "host", "device", "sharded"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "device-batched":
         from .device_verify import device_batch_verify
@@ -543,7 +543,7 @@ def batch_verify_shuffle_proofs(entries, xpc_gens=None, backend="auto",
     defer = DeferredPointChecks(seed)
     for proof, verifier, statement, inputs, outputs in entries:
         proof.verify(verifier, statement, inputs, outputs, xpc_gens, defer=defer)
-    defer.verify(backend=backend, device=device)
+    defer.verify(backend=backend, device=device, mesh=mesh)
 
 
 # observability (SURVEY §5: the reference has none; we time every proof)

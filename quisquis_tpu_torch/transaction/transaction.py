@@ -50,12 +50,6 @@ from ..shuffle.shuffle import Shuffle, ShuffleProof, ShuffleStatement
 L = ex.L
 
 
-def _no_mesh(backend: str, mesh) -> None:
-    if backend == "sharded" or mesh is not None:
-        raise NotImplementedError(
-            "backend 'sharded' / mesh=: multi-GPU verification (ROADMAP A15) is not ported yet")
-
-
 @dataclass
 class Receiver:
     amount: int
@@ -290,13 +284,12 @@ def verify_transaction_r1cs(tx: Transaction, proof: TransactionProof,
 
     `collector` diverts the two shuffle proofs to the device verifiers;
     the R1CS range proof has no device twin and always verifies here.
-    `backend` and `device`: those of DeferredPointChecks.verify, for the
-    local accumulator when `defer` is None.
+    `backend`, `device` and `mesh`: those of DeferredPointChecks.verify,
+    for the local accumulator when `defer` is None.
     """
     from ..accounts.deferred import DeferredPointChecks
     from ..accounts.rangeproof import RangeProofVerifier
 
-    _no_mesh(backend, mesh)
     own = defer is None
     if own:
         defer = DeferredPointChecks()
@@ -370,7 +363,7 @@ def verify_transaction_r1cs(tx: Transaction, proof: TransactionProof,
             defer=defer)
 
     if own:
-        defer.verify(backend=backend, device=device)
+        defer.verify(backend=backend, device=device, mesh=mesh)
 
 
 @dataclass
@@ -671,12 +664,11 @@ def verify_transaction(tx: Transaction, proof: TransactionProof,
     device verification instead: the host only advances the transcript
     through them (appends + challenge pulls), and the caller runs
     `collector.verify()` to evaluate every collected proof on device.
-    `backend` and `device`: those of DeferredPointChecks.verify, for the
-    local accumulator when `defer` is None.
+    `backend`, `device` and `mesh`: those of DeferredPointChecks.verify,
+    for the local accumulator when `defer` is None.
     """
     from ..accounts.deferred import DeferredPointChecks
 
-    _no_mesh(backend, mesh)
     own = defer is None
     if own:
         defer = DeferredPointChecks()
@@ -765,7 +757,7 @@ def verify_transaction(tx: Transaction, proof: TransactionProof,
             defer=defer)
 
     if own:
-        defer.verify(backend=backend, device=device)
+        defer.verify(backend=backend, device=device, mesh=mesh)
 
 
 def verify_transaction_auto(tx: Transaction, proof: TransactionProof,
@@ -812,16 +804,17 @@ def batch_verify_transactions(items: Sequence[Tuple[Transaction,
         (chip_smoke.py phase 15; PERF.md §5): the device verifiers'
         ~260,000 eager torch kernels a call cost more than the C++ host
         replay. The JAX package's rule was read on a TPU.
-      - "sharded" waits for multi-GPU support (ROADMAP A15).
+      - "sharded": as "host", with the one MSM's point axis split over the
+        ranks of ``mesh`` (a ``parallel.Mesh``); every rank replays every
+        transaction.
     """
     from ..accounts.deferred import DeferredPointChecks, DeviceBatchCollector
     from ..device import resolve_device
 
-    _no_mesh(backend, mesh)
     if backend == "auto":
         resolve_device(device)   # the default device raises without a GPU
         backend = "host"
-    if backend not in ("device-batched", "host", "device"):
+    if backend not in ("device-batched", "host", "device", "sharded"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "device-batched":
         resolve_device(device)
@@ -838,7 +831,7 @@ def batch_verify_transactions(items: Sequence[Tuple[Transaction,
     defer = DeferredPointChecks(seed)
     for tx, proof in items:
         verify_transaction_auto(tx, proof, defer=defer)
-    defer.verify(backend=backend, device=device)
+    defer.verify(backend=backend, device=device, mesh=mesh)
 
 
 

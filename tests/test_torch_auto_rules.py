@@ -7,9 +7,21 @@ of one transaction of config 6/6b holds as many terms as
 verdicts and the term counts are ints and booleans."""
 
 import pytest
+import torch
 
 from quisquis_tpu_torch import auto_rules
 from quisquis_tpu_torch.accounts import deferred
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 def test_read_defer_times_both_backends_on_cpu():

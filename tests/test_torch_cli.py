@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,6 +21,17 @@ MODES = {
     "serve": (["--serve", "2"], ["proving service            : built 2 wire tx",
                                  "verification service       : OK, 2 tx"]),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))

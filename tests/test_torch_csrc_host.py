@@ -174,6 +174,17 @@ void h_keccak(const uint8_t* in, uint8_t* out, int n, int split) {
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def lib():
     cxx = shutil.which("g++")

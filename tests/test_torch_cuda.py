@@ -21,6 +21,17 @@ from quisquis_tpu_torch.ops import point as pt
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():

@@ -21,6 +21,7 @@ from multiprocessing import AuthenticationError
 from multiprocessing.connection import Client
 
 import pytest
+import torch
 
 from quisquis_tpu_torch import daemon as qdaemon
 from quisquis_tpu_torch import serving
@@ -35,7 +36,19 @@ from quisquis_tpu_torch.transaction.workloads import benchmark_requests
 from quisquis_tpu_torch.utils import serde
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ENV = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+ENV = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           OMP_NUM_THREADS="1")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 class Evil:

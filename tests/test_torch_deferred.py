@@ -93,7 +93,7 @@ def test_wire_export_absorb_and_merge():
         assert verdicts == [not bad] * 4, (bad, verdicts)
     with pytest.raises(ValueError, match="malformed"):
         DeferredPointChecks(b"x").absorb_wire(b"\0" * 31, b"\0" * 128, [])
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="sharded backend requires a mesh"):
         _checks(b"x")[0].verify(backend="sharded")
     with pytest.raises(ValueError, match="unknown backend"):
         _checks(b"x")[0].verify(backend="tpu")

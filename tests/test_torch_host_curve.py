@@ -11,11 +11,23 @@ import random
 import shutil
 
 import pytest
+import torch
 
 from quisquis_tpu_torch.ops import exact as ex
 from quisquis_tpu_torch.ops import host_curve as hc
 
 rng = random.Random(20261017)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module", autouse=True)

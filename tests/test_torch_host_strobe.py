@@ -22,6 +22,17 @@ rng = np.random.default_rng(20261017)
 MERLIN_VECTOR = "d5a21972d0d5fe320c0d263fac7fffb8145aa640af6e9bca177c03c7efcf0615"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def native():
     if shutil.which("g++") is None:

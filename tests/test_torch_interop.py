@@ -6,6 +6,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from quisquis_tpu.bulletproofs.device_verify import DeviceRangeVerifier as JaxDeviceRangeVerifier
 from quisquis_tpu.ops import field as jfe
@@ -20,6 +21,17 @@ from quisquis_tpu_torch.ops import point as pt
 from quisquis_tpu_torch.ops import scalar_field as sf
 
 rng = random.Random(2024)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 def test_limbs_round_trip():

@@ -40,6 +40,17 @@ print("MODULES", len(mods), "FORBIDDEN", bad)
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
+
+
 def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,

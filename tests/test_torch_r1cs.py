@@ -6,6 +6,7 @@ out-of-range value are rejected (mirrors tests/test_r1cs.py). Everything is
 exact: equal bytes and equal ints."""
 
 import pytest
+import torch
 
 from quisquis_tpu.accounts.rangeproof import (RangeProofProver as JaxRangeProofProver,
                                               RangeProofVerifier as JaxRangeProofVerifier)
@@ -21,6 +22,17 @@ from quisquis_tpu_torch.ops import exact as ex
 from quisquis_tpu_torch.primitives.pedersen import default_pedersen_gens
 
 VALUES = [156774839, 3564435674839, 674839, 67442545356456839]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 def _range_proof(prover_cls, transcript_cls, rng_cls, values, n=64):

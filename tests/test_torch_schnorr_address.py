@@ -28,6 +28,17 @@ PORT = (RistrettoSecretKey, RistrettoPublicKey, SeededRng)
 JAX = (JaxSk, JaxPk, JaxSeededRng)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
+
+
 def _keypair(side, tag: bytes):
     sk_cls, pk_cls, rng_cls = side
     r = rng_cls(seed=tag)
@@ -100,10 +111,14 @@ def test_batch_verify_accepts_honest_rejects_poisoned(backend):
 
 def test_batch_verify_default_device_and_sharded_raise():
     items = _batch(schnorr, SeededRng, Transcript, count=2)
-    with pytest.raises(NotImplementedError, match="A15"):
-        Signature.batch_verify(items, backend="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        Signature.batch_verify(items, mesh=object(), device="cpu")
+
+    def fresh():
+        return [(s, t.clone(), v) for s, t, v in items]
+
+    with pytest.raises(ValueError, match="sharded backend requires a mesh"):
+        Signature.batch_verify(fresh(), backend="sharded", device="cpu")
+    # as in the JAX package, only the sharded backend reads a mesh
+    Signature.batch_verify(fresh(), mesh=object(), device="cpu")
     if torch.cuda.is_available():
         return
     for backend in ("auto", "device"):

@@ -10,6 +10,7 @@ the same bytes, and they verify; garbage and truncations raise ValueError
 import dataclasses
 
 import pytest
+import torch
 
 from quisquis_tpu import config as jconfig
 from quisquis_tpu.accounts.prover import Prover as JaxProver
@@ -30,6 +31,17 @@ from quisquis_tpu_torch.utils import serde
 from tests.test_torch_transaction import JAX, PORT, request
 
 N_BITS = 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

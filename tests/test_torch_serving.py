@@ -13,6 +13,7 @@ import dataclasses
 import hashlib
 
 import pytest
+import torch
 
 from quisquis_tpu import serving as jserving
 from quisquis_tpu_torch import serving
@@ -26,6 +27,17 @@ from quisquis_tpu_torch.transaction.workloads import benchmark_requests
 from quisquis_tpu_torch.utils import serde
 
 WORKERS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

@@ -174,7 +174,11 @@ def test_batch_create_and_backends(pair):
     assert sh.batch_create_shuffle_proofs([], backend="device-batched", device="cpu") == []
     with pytest.raises(ValueError, match="unknown backend"):
         sh.batch_create_shuffle_proofs(shuffles, backend="tpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        sh.batch_verify_shuffle_proofs([], backend="sharded")
+    # "sharded" needs a mesh once there is a term to check (the JAX order)
+    sh.batch_verify_shuffle_proofs([], backend="sharded")
+    entries = [(p, Verifier(b"Shuffle", Transcript(b"ShuffleProof")), s, x.get_inputs_vector(),
+                x.get_outputs_vector()) for x, (p, s) in zip(shuffles, out)]
+    with pytest.raises(ValueError, match="sharded backend requires a mesh"):
+        sh.batch_verify_shuffle_proofs(entries, backend="sharded")
     with pytest.raises(ValueError, match="unknown backend"):
         sh.batch_verify_shuffle_proofs([], backend="tpu")

@@ -11,6 +11,7 @@ bytes and ints (``workloads.comparable``)."""
 import dataclasses
 
 import pytest
+import torch
 
 from quisquis_tpu.accounts.accounts import Account as JaxAccount
 from quisquis_tpu.accounts.transcript import SeededRng as JaxSeededRng
@@ -30,6 +31,17 @@ from quisquis_tpu_torch.transaction.workloads import comparable
 
 PORT = (Account, RistrettoPublicKey, RistrettoSecretKey, SeededRng, ptx)
 JAX = (JaxAccount, JaxPk, JaxSk, JaxSeededRng, jtx)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 def request(side, tag: bytes, n_senders: int, balance: int = 20, n: int = 9):
@@ -147,11 +159,15 @@ def test_collector_advance_matches_full_replay():
 
 def test_multi_gpu_waits_for_its_port():
     tx, proof = ptx.create_transaction(**request(PORT, b"tx-mesh", 1))
-    for call in (ptx.verify_transaction, ptx.verify_transaction_r1cs):
-        with pytest.raises(NotImplementedError, match="A15"):
-            call(tx, proof, backend="sharded")
-    with pytest.raises(NotImplementedError, match="A15"):
-        ptx.batch_verify_transactions([(tx, proof)], mesh=object())
+    r1cs = ptx.create_transaction_r1cs(**request(PORT, b"tx-mesh-r1cs", 1))
+    for call, (t, p) in ((ptx.verify_transaction, (tx, proof)),
+                         (ptx.verify_transaction_r1cs, r1cs)):
+        with pytest.raises(ValueError, match="sharded backend requires a mesh"):
+            call(t, p, backend="sharded")
+    with pytest.raises(ValueError, match="sharded backend requires a mesh"):
+        ptx.batch_verify_transactions([(tx, proof)], backend="sharded")
+    # as in the JAX package, only the sharded backend reads a mesh
+    ptx.batch_verify_transactions([(tx, proof)], backend="host", mesh=object())
     with pytest.raises(ValueError, match="unknown backend"):
         ptx.batch_verify_transactions([(tx, proof)], backend="tpu", device="cpu")
     # the conservation law: the epsilon accounts' d points sum to the identity

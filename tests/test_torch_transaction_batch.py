@@ -8,6 +8,7 @@ ints (``workloads.comparable``)."""
 import dataclasses
 
 import pytest
+import torch
 
 from quisquis_tpu_torch import config as qconfig
 from quisquis_tpu_torch.bulletproofs import device_prove as rdp
@@ -15,6 +16,17 @@ from quisquis_tpu_torch.transaction import transaction as ptx
 from quisquis_tpu_torch.transaction.workloads import benchmark_requests, comparable
 
 N_BITS = 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread here, and in the processes that this module starts."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(autouse=True)
