@@ -778,7 +778,7 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
             part = (f"{svc.backend}: median {med:.1f} ms (min {lo:.1f}, max {hi:.1f}) = "
                     f"{len(batch) / med * 1e3:.2f} {unit}/s")
             if svc.backend in ("device", "merged-host"):
-                msm_s = metrics.timers[key][n0:]
+                msm_s = list(metrics.timers[key])[n0:]
                 terms = (metrics.counters["serving.merged_terms"] - terms0) / len(msm_s)
                 part += (f", merged MSM of {terms:.0f} coalesced terms: median "
                          f"{statistics.median(msm_s) * 1e3:.2f} ms")

@@ -36,6 +36,7 @@ from ..ops import exact as ex
 from ..ops import field as fe
 from ..ops import msm as qmsm
 from ..ops import point as pt
+from ..utils.metrics import span
 
 L = ex.L
 
@@ -253,9 +254,11 @@ class DeferredPointChecks:
         n = len(sbuf) // 32
         nib = pt.scalar_to_nibbles(np.frombuffer(sbuf, np.uint8).reshape(n, 32))
         wire = np.frombuffer(pbuf, np.uint8).reshape(n, 4, 32)
-        points = pt.ExtPoint(*(fe.from_bytes(wire[:, i], device) for i in range(4)))
+        with span("ops.point.decode"):
+            points = pt.ExtPoint(*(fe.from_bytes(wire[:, i], device) for i in range(4)))
         return torch.as_tensor(nib, device=device), points
 
+    @span("dev.point_checks")
     def _verify_device_wire(self, device="cuda") -> bool:
         """Device MSM straight from wire buffers; the identity check runs on
         the device and only one boolean comes back. No padding: the MSM
@@ -264,8 +267,9 @@ class DeferredPointChecks:
         sbuf, pbuf = self._terms_wire()
         if not sbuf:
             return True
-        out = qmsm.msm(*self._wire_tensors(sbuf, pbuf, dev))
-        return bool(pt.is_identity(out))
+        ok = pt.is_identity(qmsm.msm(*self._wire_tensors(sbuf, pbuf, dev)))
+        with span("dev.point_checks.wait"):
+            return bool(ok)
 
     def _verify_sharded(self, mesh) -> bool:
         """The sharded MSM (``parallel.sharded_msm``) over rank 0's terms.

@@ -38,12 +38,12 @@ import torch
 from ..accounts.transcript import Transcript
 from ..device import resolve_device
 from ..ops import exact as ex
-from ..ops import field as fe
 from ..ops import msm as qmsm
 from ..ops import point as pt
 from ..ops import scalar_field as sf
 from ..ops.device_strobe import DeviceStrobe, DeviceTranscript, snapshot_host_strobe
 from ..primitives.pedersen import default_pedersen_gens
+from ..utils.metrics import span
 from .device_verify import _sf_tree_sum
 from .generators import bulletproof_gens
 from .inner_product import InnerProductProof
@@ -139,7 +139,7 @@ class DeviceRangeProver:
         nib = torch.cat([v_nib, sf.to_nibbles(torch.stack([a_row, s_row], dim=1))], dim=1)
         vas = qmsm.msm_shared_rows(nib.reshape(B * (m + 2), 2 + 2 * nm, pt.NWINDOWS),
                                    self._basis)
-        enc = fe.to_bytes_tensor(pt.compress(vas)).reshape(B, m + 2, 32)
+        enc = pt.compress_to_bytes_tensor(vas).reshape(B, m + 2, 32)
         V_b, A_b, S_b = enc[:, :m], enc[:, m], enc[:, m + 1]
 
         # ----- transcript to y, z
@@ -173,7 +173,7 @@ class DeviceRangeProver:
                               torch.stack([t2, t2_blind], dim=1)], dim=1)   # [B, 2, 2, 10]
         T = qmsm.msm_shared_rows(sf.to_nibbles(t_rows).reshape(B * 2, 2, pt.NWINDOWS),
                                  self._pc_basis)
-        T_enc = fe.to_bytes_tensor(pt.compress(T)).reshape(B, 2, 32)
+        T_enc = pt.compress_to_bytes_tensor(T).reshape(B, 2, 32)
         dt.append_message(b"T_1", T_enc[:, 0], 32)
         dt.append_message(b"T_2", T_enc[:, 1], 32)
         x = sf.from_bytes_wide(dt.get_challenge_bytes(b"x"))
@@ -217,7 +217,7 @@ class DeviceRangeProver:
                                 torch.cat([c_Rw[:, None], zero_col, gR, hR], dim=1)], dim=1)
             LR = qmsm.msm_shared_rows(sf.to_nibbles(rows).reshape(B * 2, 2 + 2 * nm,
                                                                   pt.NWINDOWS), self._basis)
-            LR_enc = fe.to_bytes_tensor(pt.compress(LR)).reshape(B, 2, 32)
+            LR_enc = pt.compress_to_bytes_tensor(LR).reshape(B, 2, 32)
             L_out.append(LR_enc[:, 0])
             R_out.append(LR_enc[:, 1])
             dt.append_message(b"L", LR_enc[:, 0], 32)
@@ -258,6 +258,7 @@ class DeviceRangeProver:
         rand4 = np.stack([a_blinding] + [_scalar_bytes(rng.random_scalar()) for _ in range(3)])
         return vb, blb, bits, svecs.reshape(2, nm, 32), rand4
 
+    @span("dev.range_prove.pack")
     def _pack(self, values, blindings, rngs, transcripts):
         B = self.batch
         if len(values) != B or len(blindings) != B or len(rngs) != B:
@@ -276,8 +277,10 @@ class DeviceRangeProver:
     def _run(self, arrays, frame):
         comp, scal = self._program(*(torch.as_tensor(a, device=self.device) for a in arrays),
                                    frame)
-        return comp.cpu().numpy(), scal.cpu().numpy()
+        with span("dev.range_prove.wait"):
+            return comp.cpu().numpy(), scal.cpu().numpy()
 
+    @span("dev.range_prove")
     def prove(self, values: Sequence[Sequence[int]], blindings: Sequence[Sequence[int]],
               rngs: Sequence, transcripts=None) -> Tuple[List[RangeProof], List[List[bytes]]]:
         """values, blindings: B lanes of m entries; rngs: one SeededRng per

@@ -39,6 +39,7 @@ from ..ops import point as pt
 from ..ops import scalar_field as sf
 from ..ops.device_strobe import DeviceStrobe, DeviceTranscript, snapshot_host_strobe
 from ..primitives.pedersen import default_pedersen_gens
+from ..utils.metrics import span
 from .generators import bulletproof_gens
 
 
@@ -220,6 +221,7 @@ class DeviceRangeVerifier:
 
     # -- host API ------------------------------------------------------------
 
+    @span("dev.range_verify.pack")
     def _pack(self, proofs, value_commitments, transcripts):
         B, m, k = self.batch, self.m, self.k
         if len(proofs) != B or len(value_commitments) != B:
@@ -246,8 +248,10 @@ class DeviceRangeVerifier:
 
     def _run(self, comp, scal, weights, states, frame) -> bool:
         dev = self.device
-        return bool(self._program(*(torch.as_tensor(a, device=dev)
-                                    for a in (comp, scal, weights, states)), frame))
+        ok = self._program(*(torch.as_tensor(a, device=dev)
+                             for a in (comp, scal, weights, states)), frame)
+        with span("dev.range_verify.wait"):
+            return bool(ok)
 
     def warmup(self) -> None:
         """Build the kernels (on CUDA) and run the program once on zero
@@ -321,6 +325,7 @@ def get_device_range_verifier(n: int, m: int, batch: int,
     return _VERIFIER_CACHE[key]
 
 
+@span("dev.range_verify")
 def device_batch_verify(instances, n: int, rng=None, min_bucket: int = 4,
                         device="cuda") -> None:
     """Verify [(proof, value_commitments, transcript), ...] on the device:

@@ -24,6 +24,7 @@ from ..ops import exact as ex
 from ..accounts.transcript import Transcript, SeededRng
 from ..device import resolve_device
 from ..primitives.pedersen import default_pedersen_gens
+from ..utils.metrics import span
 from .generators import bulletproof_gens
 from .inner_product import InnerProductProof
 
@@ -228,10 +229,11 @@ class RangeProof:
         from ..ops.device_strobe import snapshot_host_strobe
         from .device_prove import get_device_range_prover
 
-        groups: dict = {}
-        for i, (t, vals, _, _) in enumerate(lanes):
-            frame = snapshot_host_strobe(t.strobe)[1:]
-            groups.setdefault((len(vals), frame), []).append(i)
+        with span("dev.range_prove"):
+            groups: dict = {}
+            for i, (t, vals, _, _) in enumerate(lanes):
+                frame = snapshot_host_strobe(t.strobe)[1:]
+                groups.setdefault((len(vals), frame), []).append(i)
         results: list = [None] * len(lanes)
         for (m, _), idxs in sorted(groups.items()):
             if backend == "auto" and len(idxs) < _auto_min_device(m):
@@ -239,16 +241,18 @@ class RangeProof:
                     t, vals, blinds, rng = lanes[i]
                     results[i] = RangeProof.prove_multiple(t, vals, blinds, n, rng=rng)
                 continue
-            B = max(min_bucket, 1 << (len(idxs) - 1).bit_length())
-            pad = idxs + [idxs[0]] * (B - len(idxs))
-            drp = get_device_range_prover(n, m, B, device=device)
-            proofs, vlists = drp.prove(
-                [list(lanes[i][1]) for i in pad], [list(lanes[i][2]) for i in pad],
-                [lanes[i][3] if k < len(idxs) else SeededRng() for k, i in enumerate(pad)],
-                transcripts=[lanes[i][0] for i in pad])   # snapshots; not advanced
-            for k, i in enumerate(idxs):
-                proofs[k].advance_transcript(lanes[i][0], vlists[k], n)
-                results[i] = (proofs[k], vlists[k])
+            with span("dev.range_prove"):
+                B = max(min_bucket, 1 << (len(idxs) - 1).bit_length())
+                pad = idxs + [idxs[0]] * (B - len(idxs))
+                drp = get_device_range_prover(n, m, B, device=device)
+                proofs, vlists = drp.prove(
+                    [list(lanes[i][1]) for i in pad], [list(lanes[i][2]) for i in pad],
+                    [lanes[i][3] if k < len(idxs) else SeededRng() for k, i in enumerate(pad)],
+                    transcripts=[lanes[i][0] for i in pad])   # snapshots; not advanced
+            with span("tx.build.advance"):
+                for k, i in enumerate(idxs):
+                    proofs[k].advance_transcript(lanes[i][0], vlists[k], n)
+                    results[i] = (proofs[k], vlists[k])
         return results
 
     # ----------------------------------------------------------------- verify
@@ -503,15 +507,3 @@ class RangeProof:
         ipp = InnerProductProof.from_bytes(data[224:])
         return cls(A, S, T1, T2, t_x, t_x_b, e_b, ipp)
 
-
-# observability: wall-clock per proof op + proof sizes (bytes)
-from ..utils.metrics import instrument as _instrument  # noqa: E402
-
-RangeProof.prove_multiple = staticmethod(
-    _instrument("rangeproof.prove", "rangeproof.bytes",
-                lambda out: len(out[0].to_bytes()))(
-        RangeProof.prove_multiple))
-RangeProof.verify_multiple = _instrument("rangeproof.verify")(
-    RangeProof.verify_multiple)
-RangeProof.batch_verify = staticmethod(
-    _instrument("rangeproof.batch_verify")(RangeProof.batch_verify))

@@ -13,13 +13,16 @@ For tensors on the CPU each calls its plain version in
 :mod:`quisquis_tpu_torch.ops.point` or :mod:`quisquis_tpu_torch.ops.msm_plain`;
 for CUDA tensors it launches the kernel or raises. Each launch adds one to
 :data:`LAUNCHES`. :mod:`quisquis_tpu_torch.ops.cuda_build` builds and loads
-the kernels.
+the kernels. Each multiscalar multiplication is a span ``ops.msm`` and adds
+the terms it hands the kernels, padding included, to the counter
+``ops.msm.terms`` (``utils.metrics``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import metrics, span
 from . import field as fe
 from . import msm_plain as qmsm
 from . import point as pt
@@ -140,20 +143,27 @@ def pad_rows(nibbles: torch.Tensor, p: pt.ExtPoint):
             pt.ExtPoint(*(c.reshape(n, fe.NLIMBS).contiguous() for c in p)))
 
 
-def msm_rows(nibbles: torch.Tensor, p: pt.ExtPoint) -> pt.ExtPoint:
-    """One multiscalar multiplication per row: nibbles int32 [R, k, 64] over
-    points [R, k] -> points [R]."""
+def _msm_rows(nibbles: torch.Tensor, p: pt.ExtPoint) -> pt.ExtPoint:
     rows = nibbles.shape[0]
     if rows == 0:
         return _empty_point((0, fe.NLIMBS), nibbles.device)
     digits, flat = pad_rows(nibbles, p)
+    metrics.count("ops.msm.terms", digits.shape[1])
     return msm_tail(msm_window_sums(digits, msm_table(flat), rows))
 
 
+@span("ops.msm")
+def msm_rows(nibbles: torch.Tensor, p: pt.ExtPoint) -> pt.ExtPoint:
+    """One multiscalar multiplication per row: nibbles int32 [R, k, 64] over
+    points [R, k] -> points [R]."""
+    return _msm_rows(nibbles, p)
+
+
+@span("ops.msm")
 def msm(nibbles: torch.Tensor, p: pt.ExtPoint) -> pt.ExtPoint:
     """sum_i s_i * P_i: nibbles int32 [n, 64], points [n] -> one point
     (coords [10])."""
-    out = msm_rows(nibbles[None], pt.ExtPoint(*(c[None] for c in p)))
+    out = _msm_rows(nibbles[None], pt.ExtPoint(*(c[None] for c in p)))
     return pt.ExtPoint(*(c[0] for c in out))
 
 
@@ -191,6 +201,7 @@ class SharedBasis:
         return self._table
 
 
+@span("ops.msm")
 def msm_shared_rows(nibbles: torch.Tensor, basis: SharedBasis) -> pt.ExtPoint:
     """One multiscalar multiplication per row over one shared basis:
     nibbles int32 [R, k', 64], k' <= basis.k (missing digits are zeros) ->
@@ -203,6 +214,7 @@ def msm_shared_rows(nibbles: torch.Tensor, basis: SharedBasis) -> pt.ExtPoint:
         nibbles = torch.cat([nibbles, nibbles.new_zeros((rows, basis.k - k, pt.NWINDOWS))], dim=1)
     elif k > basis.k:
         raise ValueError(f"msm_shared_rows: {k} digits a row over a basis of {basis.k} points")
+    metrics.count("ops.msm.terms", rows * (basis.k + (-basis.k) % qmsm.MSM_LANES))
     if _device_kind(nibbles, "msm_shared_rows") == "cpu":
         return qmsm.msm_comb(nibbles, basis.comb())
     if rows == 0:

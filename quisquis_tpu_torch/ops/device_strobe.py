@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..utils.metrics import span
 from .device_keccak import f1600
 from .strobe import STROBE_R, Strobe128, _FLAG_A, _FLAG_C, _FLAG_I, _FLAG_M
 
@@ -210,6 +211,7 @@ class DeviceTranscript:
         return cls.from_strobe(DeviceStrobe.from_host_states(
             torch.as_tensor(states, device=resolve_device(device)), *frame))
 
+    @span("ops.strobe")
     def append_message(self, label: bytes, message: Data, nbytes: int = -1) -> None:
         n = len(message) if nbytes < 0 else nbytes
         self.strobe.meta_ad(label, False)
@@ -219,6 +221,7 @@ class DeviceTranscript:
     def append_u64(self, label: bytes, x: int) -> None:
         self.append_message(label, struct.pack("<Q", x))
 
+    @span("ops.strobe")
     def challenge_bytes(self, label: bytes, n: int) -> torch.Tensor:
         self.strobe.meta_ad(label, False)
         self.strobe.meta_ad(_u32le(n), True)
@@ -248,6 +251,7 @@ class DeviceTranscriptRng:
     def __init__(self, strobe: DeviceStrobe):
         self.strobe = strobe.clone()
 
+    @span("ops.strobe")
     def rekey_with_witness_bytes(self, label: bytes, witness: Data,
                                  nbytes: int = -1) -> "DeviceTranscriptRng":
         n = len(witness) if nbytes < 0 else nbytes
@@ -256,11 +260,13 @@ class DeviceTranscriptRng:
         self.strobe.key(witness, False, n)
         return self
 
+    @span("ops.strobe")
     def finalize(self, entropy: Data) -> "DeviceTranscriptRng":
         self.strobe.meta_ad(b"rng", False)
         self.strobe.key(entropy, False, 32)
         return self
 
+    @span("ops.strobe")
     def fill_bytes(self, n: int) -> torch.Tensor:
         self.strobe.meta_ad(_u32le(n), False)
         return self.strobe.prf(n, False)

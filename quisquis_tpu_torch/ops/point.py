@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.metrics import span
 from . import exact as ex
 from . import field as fe
 
@@ -366,6 +367,7 @@ ONE_MINUS_D_SQ_LIMBS = fe.from_int(ex.ONE_MINUS_D_SQ)
 D_MINUS_ONE_SQ_LIMBS = fe.from_int(ex.D_MINUS_ONE_SQ)
 
 
+@span("ops.point.encode")
 def compress(p: ExtPoint) -> torch.Tensor:
     """Ristretto encode -> canonical field element s as limbs [..., 10]."""
     m, a, s_ = fe.mul, fe.add, fe.sub
@@ -389,9 +391,16 @@ def compress(p: ExtPoint) -> torch.Tensor:
     return fe.canonicalize(fe.cabs(m(den_inv, s_(z0, y))))
 
 
+@span("ops.point.encode")
 def compress_to_bytes(p: ExtPoint) -> np.ndarray:
     """[..., 32] uint8 wire encodings (only the bytes leave the device)."""
     return fe.to_bytes(compress(p))
+
+
+@span("ops.point.encode")
+def compress_to_bytes_tensor(p: ExtPoint) -> torch.Tensor:
+    """[..., 32] uint8 wire encodings, left on the device."""
+    return fe.to_bytes_tensor(compress(p))
 
 
 def decompress(s: torch.Tensor):
@@ -415,6 +424,7 @@ def decompress(s: torch.Tensor):
     return ok, ExtPoint(x, y, one, t)
 
 
+@span("ops.point.decode")
 def decompress_from_bytes(b, device="cuda"):
     """[..., 32] uint8 -> (ok, ExtPoint); rejects non-canonical encodings."""
     b = np.asarray(b, dtype=np.uint8)
@@ -424,6 +434,7 @@ def decompress_from_bytes(b, device="cuda"):
     return ok & torch.as_tensor(ok_enc, device=ok.device), p
 
 
+@span("ops.point.decode")
 def decompress_bytes_tensor(b: torch.Tensor):
     """Byte values [..., 32] already on a device -> (ok, ExtPoint) there:
     :func:`decompress_from_bytes` with the canonical-encoding check in

@@ -40,6 +40,8 @@ import multiprocessing as _mp
 import os
 from typing import List, Optional, Sequence, Tuple
 
+from .utils.metrics import metrics, span
+
 #: what the forkserver imports once, before it forks any worker: the C++
 #: curve and STROBE and the host verifiers and provers
 _PRELOAD = ["quisquis_tpu_torch", "quisquis_tpu_torch.transaction.transaction",
@@ -220,11 +222,9 @@ class _PoolService:
         if first_broken is not None:
             raise first_broken
         if collect:
-            from .utils.metrics import metrics
-
             where = "device" if self.backend == "device" else "host"
             metrics.count("serving.merged_terms", defer.num_terms)
-            with metrics.timer(f"serving.merged_msm.{where}"):
+            with span(f"serving.merged_msm.{where}"):
                 defer.verify(backend=where, device=self.device)
         return total
 
@@ -282,6 +282,7 @@ class VerificationService(_PoolService):
     and per request.
     """
 
+    @span("serving.verify_wire")
     def verify_wire(self, pairs: Sequence[WirePair]) -> int:
         """Verify wire-format transactions across the pool; returns count."""
         pairs = list(pairs)
@@ -291,9 +292,10 @@ class VerificationService(_PoolService):
             from .utils import serde
             from .transaction.transaction import batch_verify_transactions
 
-            items = [(serde.transaction_from_bytes(txb),
-                      serde.transaction_proof_from_bytes(pfb))
-                     for txb, pfb in pairs]
+            with span("serving.decode"):
+                items = [(serde.transaction_from_bytes(txb),
+                          serde.transaction_proof_from_bytes(pfb))
+                         for txb, pfb in pairs]
             batch_verify_transactions(items, backend="device-batched",
                                       seed=self._chunk_seed(0), device=self.device)
             return len(items)
@@ -535,13 +537,3 @@ class ProvingService:
 
     def __exit__(self, *exc) -> None:
         self.close()
-
-
-# observability
-from .utils.metrics import instrument as _instrument  # noqa: E402
-
-VerificationService.verify_wire = _instrument("serving.verify_wire")(
-    VerificationService.verify_wire)
-ShuffleVerificationService.verify_wire = _instrument(
-    "serving.shuffle_verify_wire")(ShuffleVerificationService.verify_wire)
-ProvingService.build = _instrument("serving.build")(ProvingService.build)

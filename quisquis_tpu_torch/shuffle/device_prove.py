@@ -54,6 +54,7 @@ from ..ops.device_strobe import (DeviceStrobe, DeviceTranscript, DeviceTranscrip
                                  snapshot_host_strobe)
 from ..primitives.keys import RistrettoPublicKey
 from ..primitives.pedersen import default_pedersen_gens, vector_pedersen_gens
+from ..utils.metrics import span
 from .ddh import DDHProof, DDHStatement
 from .hadamard import HadamardProof, HadamardStatement
 from .multiexponential import MultiexpoProof
@@ -175,7 +176,7 @@ class DeviceShuffleProver:
     @staticmethod
     def _enc(points: pt.ExtPoint) -> torch.Tensor:
         """Wire encodings, uint8 [..., 32] on the device."""
-        return fe.to_bytes_tensor(pt.compress(points))
+        return pt.compress_to_bytes_tensor(points)
 
     @staticmethod
     def _rekey(drng: DeviceTranscriptRng, arr_bytes: torch.Tensor) -> None:
@@ -214,7 +215,9 @@ class DeviceShuffleProver:
 
         ok_in, in_pts = pt.decompress_bytes_tensor(acc_in)      # [B, 4N]
         ok_out, o_pts = pt.decompress_bytes_tensor(acc_out)
-        if not bool(ok_in.all() & ok_out.all()):  # the one fetch before the end
+        with span("dev.shuffle_prove.wait"):
+            decoded = bool(ok_in.all() & ok_out.all())  # the one fetch before the end
+        if not decoded:
             raise ValueError("invalid account point in shuffle prover input")
         in_g, in_h = _cols(in_pts, 0, N), _cols(in_pts, N, 2 * N)
         o_g, o_h = _cols(o_pts, 0, N), _cols(o_pts, N, 2 * N)
@@ -630,6 +633,7 @@ class DeviceShuffleProver:
             raise ValueError("lane transcripts diverged in framing")
         return np.stack([np.frombuffer(s[0], np.uint8) for s in snaps]), frame
 
+    @span("dev.shuffle_prove.pack")
     def _pack(self, shuffles: Sequence, rngs: Sequence, transcripts=None):
         """The program's inputs (numpy) and the transcript frame; consumes
         each lane's rng in the host prover's exact draw order
@@ -676,8 +680,10 @@ class DeviceShuffleProver:
     def _run(self, arrays, frame):
         pts_b, scal_b = self._program(*(torch.as_tensor(a, device=self.device) for a in arrays),
                                       frame)
-        return pts_b.cpu().numpy(), scal_b.cpu().numpy()
+        with span("dev.shuffle_prove.wait"):
+            return pts_b.cpu().numpy(), scal_b.cpu().numpy()
 
+    @span("dev.shuffle_prove")
     def prove(self, shuffles: Sequence, rngs: Sequence,
               transcripts: Optional[Sequence] = None):
         """[(ShuffleProof, ShuffleStatement)] x B, byte-identical to the

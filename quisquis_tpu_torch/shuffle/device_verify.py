@@ -51,6 +51,7 @@ from ..ops import scalar_field as sf
 from ..ops.device_strobe import DeviceStrobe, DeviceTranscript, snapshot_host_strobe
 from ..primitives.keys import RistrettoPublicKey
 from ..primitives.pedersen import default_pedersen_gens, vector_pedersen_gens
+from ..utils.metrics import span
 
 L = ex.L
 
@@ -460,7 +461,7 @@ class DeviceShuffleVerifier:
         # point that needs a ristretto encoding is ready before the DDH
         # appends, so one batched compress serves the comparisons and the
         # transcript: [c_E (m) | G_agg | H_agg | g_r | h_r].
-        enc = fe.to_bytes_tensor(pt.compress(cat([c_E, _cols(rows, 0, 4)])))  # [B, m+4, 32]
+        enc = pt.compress_to_bytes_tensor(cat([c_E, _cols(rows, 0, 4)]))  # [B, m+4, 32]
 
         def enc_eq(i: int, wire_bytes: torch.Tensor) -> torch.Tensor:
             # Byte equality with a canonical encoding: the wire is then
@@ -565,6 +566,7 @@ class DeviceShuffleVerifier:
             raise ValueError("lane transcripts diverged in framing")
         return np.stack([np.frombuffer(s[0], np.uint8) for s in snaps]), frame
 
+    @span("dev.shuffle_verify.pack")
     def _pack(self, entries, transcripts):
         m, N, B = self.m, self.N, self.batch
         if len(entries) != B:
@@ -696,8 +698,10 @@ class DeviceShuffleVerifier:
 
     def _run(self, comp, scal, weights, states, frame) -> bool:
         dev = self.device
-        return bool(self._program(*(torch.as_tensor(a, device=dev)
-                                    for a in (comp, scal, weights, states)), frame))
+        ok = self._program(*(torch.as_tensor(a, device=dev)
+                             for a in (comp, scal, weights, states)), frame)
+        with span("dev.shuffle_verify.wait"):
+            return bool(ok)
 
     def warmup(self, transcripts=None) -> None:
         """Build the kernels (on CUDA) and run the program once on zero
@@ -774,6 +778,7 @@ def get_device_shuffle_verifier(m: int, batch: int,
     return _VERIFIER_CACHE[key]
 
 
+@span("dev.shuffle_verify")
 def device_batch_verify(entries, transcripts=None, rng=None, device="cuda") -> None:
     """Verify [(proof, statement, inputs, outputs), ...] on the device.
 

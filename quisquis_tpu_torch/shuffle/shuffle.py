@@ -23,6 +23,7 @@ from ..accounts.prover import Prover
 from ..accounts.verifier import Verifier
 from ..accounts.transcript import SeededRng
 from ..device import resolve_device
+from ..utils.metrics import span
 from .hadamard import HadamardProof, HadamardStatement
 from .product import ProductProof, ProductStatement
 from .multiexponential import MultiexpoProof
@@ -179,6 +180,7 @@ class ShuffleProof:
     ddh_proof: DDHProof
 
     @staticmethod
+    @span("shuffle.prove")
     def create_shuffle_proof(
         prover: Prover, shuffle: Shuffle,
         xpc_gens: Optional[VectorPedersenGens] = None,
@@ -545,12 +547,3 @@ def batch_verify_shuffle_proofs(entries, xpc_gens=None, backend="auto",
         proof.verify(verifier, statement, inputs, outputs, xpc_gens, defer=defer)
     defer.verify(backend=backend, device=device, mesh=mesh)
 
-
-# observability (SURVEY §5: the reference has none; we time every proof)
-from ..utils.metrics import instrument as _instrument  # noqa: E402
-
-ShuffleProof.create_shuffle_proof = staticmethod(
-    _instrument("shuffle.prove")(ShuffleProof.create_shuffle_proof))
-ShuffleProof.verify = _instrument("shuffle.verify")(ShuffleProof.verify)
-batch_verify_shuffle_proofs = _instrument("shuffle.batch_verify")(
-    batch_verify_shuffle_proofs)

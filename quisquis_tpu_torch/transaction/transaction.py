@@ -46,6 +46,7 @@ from ..accounts.transcript import Transcript, SeededRng
 from ..accounts.prover import Prover
 from ..accounts.verifier import Verifier
 from ..shuffle.shuffle import Shuffle, ShuffleProof, ShuffleStatement
+from ..utils.metrics import span
 
 L = ex.L
 
@@ -621,26 +622,29 @@ def batch_create_transactions(requests: Sequence[dict],
     if range_backend != "host":
         resolve_device(device)   # the default device raises before any host work
     n_bits = _cfg.range_bits
-    ctxs = [_tx_pre_range(**req) for req in requests]
-    lanes, lane_ctx = [], []
-    results: List[Optional[list]] = [None] * len(ctxs)
-    for i, ctx in enumerate(ctxs):
-        size = len(ctx.bl_rp_vector)
-        if size & (size - 1) == 0:
-            # mirror verify_non_negative_sender_receiver_prover's framing
-            ctx.qq_prover.new_domain_sep(b"AggregateBulletProof")
-            lanes.append((ctx.qq_prover.transcript, ctx.bl_rp_vector,
-                          ctx.scalars_bp_vector, ctx.qq_prover._rng))
-            lane_ctx.append(i)
-        else:
-            results[i] = ctx.qq_prover.verify_non_negative_sender_receiver_prover(
-                ctx.bl_rp_vector, ctx.scalars_bp_vector)
-    if lanes:
-        proved = RangeProof.prove_batch(lanes, n_bits, backend=range_backend,
-                                        device=device)
-        for i, (proof, _V) in zip(lane_ctx, proved):
-            results[i] = [proof]
-    return [_tx_post_range(ctx, rp) for ctx, rp in zip(ctxs, results)]
+    with span("tx.build.pre_range"):
+        ctxs = [_tx_pre_range(**req) for req in requests]
+    with span("tx.build.range"):
+        lanes, lane_ctx = [], []
+        results: List[Optional[list]] = [None] * len(ctxs)
+        for i, ctx in enumerate(ctxs):
+            size = len(ctx.bl_rp_vector)
+            if size & (size - 1) == 0:
+                # mirror verify_non_negative_sender_receiver_prover's framing
+                ctx.qq_prover.new_domain_sep(b"AggregateBulletProof")
+                lanes.append((ctx.qq_prover.transcript, ctx.bl_rp_vector,
+                              ctx.scalars_bp_vector, ctx.qq_prover._rng))
+                lane_ctx.append(i)
+            else:
+                results[i] = ctx.qq_prover.verify_non_negative_sender_receiver_prover(
+                    ctx.bl_rp_vector, ctx.scalars_bp_vector)
+        if lanes:
+            proved = RangeProof.prove_batch(lanes, n_bits, backend=range_backend,
+                                            device=device)
+            for i, (proof, _V) in zip(lane_ctx, proved):
+                results[i] = [proof]
+    with span("tx.build.post_range"):
+        return [_tx_post_range(ctx, rp) for ctx, rp in zip(ctxs, results)]
 
 
 def verify_transaction(tx: Transaction, proof: TransactionProof,
@@ -820,27 +824,20 @@ def batch_verify_transactions(items: Sequence[Tuple[Transaction,
         resolve_device(device)
         collector = DeviceBatchCollector()
         defer = DeferredPointChecks(seed)
-        for tx, proof in items:
-            verify_transaction_auto(tx, proof, defer=defer,
-                                    collector=collector)
-        collector.verify(rng=SeededRng(seed) if seed is not None else None,
-                         device=device)
-        defer.verify(backend="device", device=device)
+        with span("tx.verify.replay"):
+            for tx, proof in items:
+                verify_transaction_auto(tx, proof, defer=defer,
+                                        collector=collector)
+        with span("tx.verify.device"):
+            collector.verify(rng=SeededRng(seed) if seed is not None else None,
+                             device=device)
+            defer.verify(backend="device", device=device)
         return
 
     defer = DeferredPointChecks(seed)
-    for tx, proof in items:
-        verify_transaction_auto(tx, proof, defer=defer)
+    with span("tx.verify.replay"):
+        for tx, proof in items:
+            verify_transaction_auto(tx, proof, defer=defer)
     defer.verify(backend=backend, device=device, mesh=mesh)
 
 
-
-# observability
-from ..utils.metrics import instrument as _instrument  # noqa: E402
-
-create_transaction = _instrument("transaction.create")(create_transaction)
-create_transaction_r1cs = _instrument("transaction.create_r1cs")(
-    create_transaction_r1cs)
-verify_transaction = _instrument("transaction.verify")(verify_transaction)
-batch_verify_transactions = _instrument("transaction.batch_verify")(
-    batch_verify_transactions)

@@ -3,7 +3,8 @@ kernels' plain versions), mirroring tests/test_batch_tx.py:
 ``batch_create_transactions`` with its range proofs on the device prover
 equals the ``create_transaction`` loop byte for byte. Range proofs of 8
 bits keep the device programs small. Everything is exact: equal bytes and
-ints (``workloads.comparable``)."""
+ints (``workloads.comparable``). The device-batched build opens the port's
+spans of every step, whose self times add up to the build."""
 
 import dataclasses
 
@@ -14,6 +15,9 @@ from quisquis_tpu_torch import config as qconfig
 from quisquis_tpu_torch.bulletproofs import device_prove as rdp
 from quisquis_tpu_torch.transaction import transaction as ptx
 from quisquis_tpu_torch.transaction.workloads import benchmark_requests, comparable
+from quisquis_tpu_torch.utils.metrics import metrics
+
+from tests.test_torch_transaction_verify import check_spans
 
 N_BITS = 8
 
@@ -39,10 +43,19 @@ def _loop(reqs):
     return [ptx.create_transaction(**req) for req in reqs]
 
 
+#: the spans of a device-batched build
+BUILD_SPANS = {"tx.build.pre_range", "tx.build.range", "tx.build.advance",
+               "tx.build.post_range", "shuffle.prove", "dev.range_prove",
+               "dev.range_prove.pack", "dev.range_prove.wait", "ops.point.encode", "ops.strobe", "ops.msm"}
+
+
 def test_batch_create_three_as_a_bucket_of_four_equals_the_loop():
     rdp._PROVER_CACHE.clear()
-    built = ptx.batch_create_transactions(benchmark_requests(b"tb-3", 3, 1, 9),
-                                          range_backend="device-batched", device="cpu")
+    metrics.reset()
+    with metrics.span("test.call"):
+        built = ptx.batch_create_transactions(benchmark_requests(b"tb-3", 3, 1, 9),
+                                              range_backend="device-batched", device="cpu")
+    check_spans(BUILD_SPANS)
     assert [k[:3] for k in rdp._PROVER_CACHE] == [(N_BITS, 2, 4)]
     assert comparable(built) == comparable(_loop(benchmark_requests(b"tb-3", 3, 1, 9)))
     host = ptx.batch_create_transactions(benchmark_requests(b"tb-3", 3, 1, 9),

@@ -3,7 +3,9 @@ kernels' plain versions), mirroring tests/test_device_transaction.py:
 ``batch_verify_transactions("device-batched")`` gives the host replay's
 verdict on an honest batch and on batches with one tampered transaction,
 two of the tamperings read only by the device verifiers. Range proofs of 8
-bits keep the device programs small. The verdicts are compared exactly."""
+bits keep the device programs small. The verdicts are compared exactly. The
+honest device-batched call opens the port's spans of every step, whose self
+times add up to the call."""
 
 import dataclasses
 
@@ -15,6 +17,7 @@ from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks, DeviceBatc
 from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
 from quisquis_tpu_torch.transaction import transaction as ptx
 from quisquis_tpu_torch.transaction.workloads import benchmark_requests
+from quisquis_tpu_torch.utils.metrics import SELF, metrics
 
 N_BITS = 8
 
@@ -63,6 +66,25 @@ def _tampered(items, what):
     return [(tx, proof)] + items[1:]
 
 
+#: the spans of a device-batched verify (its sigma checks leave no deferred
+#: terms for the device, so no "dev.point_checks")
+VERIFY_SPANS = {"tx.verify.replay", "tx.verify.device", "dev.shuffle_verify",
+                "dev.shuffle_verify.pack", "dev.shuffle_verify.wait", "dev.range_verify",
+                "dev.range_verify.pack", "dev.range_verify.wait",
+                "ops.point.decode", "ops.point.encode", "ops.strobe", "ops.msm"}
+
+
+def check_spans(expected, outer="test.call"):
+    """Every expected span recorded; the self times of all spans add up to
+    the outer span's duration, of which the steps' spans hold nearly all."""
+    spans = {k[:-len(SELF)]: v for k, v in metrics.counters.items() if k.endswith(SELF)}
+    assert expected <= set(spans), expected - set(spans)
+    (call,) = metrics.timers[outer]
+    assert sum(spans.values()) == pytest.approx(call, rel=1e-9)
+    assert spans[outer] < 0.02 * call
+    assert metrics.counters["ops.msm.terms"] > 0
+
+
 #: tamperings that only the device verifiers see: the host's advance-only
 #: replay appends nothing of them before its last challenge check
 DEVICE_ONLY = ("range ipp a", "shuffle E_k_0")
@@ -73,11 +95,16 @@ def test_batch_verify_device_batched_gives_the_host_verdict(honest, what):
     batch = honest if what is None else _tampered(honest, what)
     verdicts = []
     for backend in ("device-batched", "host"):
+        metrics.reset()
         try:
-            ptx.batch_verify_transactions(batch, backend=backend, seed=b"tv-w", device="cpu")
+            with metrics.span("test.call"):
+                ptx.batch_verify_transactions(batch, backend=backend, seed=b"tv-w",
+                                              device="cpu")
             verdicts.append(True)
         except ValueError:
             verdicts.append(False)
+        if backend == "device-batched" and what is None:
+            check_spans(VERIFY_SPANS)
     assert verdicts == [what is None] * 2
     if what in DEVICE_ONLY:   # the host part accepts; the collected proofs fail
         collector = DeviceBatchCollector()
