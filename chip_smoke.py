@@ -5,14 +5,15 @@
 
 Phases, each printed on its own line:
   1. require a CUDA GPU; print its name and power limit (nvidia-smi);
-  2. build the six CUDA kernels from csrc/ (nvcc, at first use) and check
-     that the host transcripts use the C++ STROBE (csrc/host_strobe.cpp,
-     built with g++ at the transcripts' first import) and that ops/exact.py
-     does the host points on the C++ curve (csrc/host_curve.cpp, built with
-     g++ at the package's import); meanwhile four worker processes make
-     four aggregated range proofs (n = 64, m = 16) with the port's host
-     prover, timed (the generators made first), and check each with the
-     host verifier; they are done before phase 6;
+  2. build the eight CUDA kernels (seven sources) from csrc/ (nvcc, at
+     first use) and check that the host transcripts use the C++ STROBE
+     (csrc/host_strobe.cpp, built with g++ at the transcripts' first
+     import) and that ops/exact.py does the host points on the C++ curve
+     (csrc/host_curve.cpp, built with g++ at the package's import);
+     meanwhile four worker processes make four aggregated range proofs
+     (n = 64, m = 16) with the port's host prover, timed (the generators
+     made first), and check each with the host verifier; they are done
+     before phase 6;
   3. hold each kernel against its plain PyTorch version on the card at
      B = 256, limb for limb (edge scalars included: integers up to
      2^256 - 1, for scalar_mul also the identity and points with
@@ -23,7 +24,8 @@ Phases, each printed on its own line:
      tampered lane must fail alone; 32 sampled lanes against exact.py;
   5. the Account-object path on 1,024 Accounts built from phase 4's wire
      bytes: update_accounts_device and delta/epsilon creation, 16 rows
-     byte-identical to the host Account methods;
+     byte-identical to the host Account methods; the launches of both,
+     the codec's included (8 encodes, no decode);
   6. each kernel's phase-4 output at N = 16,384, and a launch on its first
      1,024 lanes (phase 5's width), limb for limb against the plain version
      on the same inputs; times on this card: each kernel and its plain
@@ -33,6 +35,11 @@ Phases, each printed on its own line:
      byte: table at 256 points, window sums and tail at N = 300 and in rows
      mode at R = 8, k = 200, both MSMs also against the exact backend, the
      permutation at B = 1, 64, 1,000 also against the host permutation;
+ 7b. the ristretto codec kernels (decode, encode) against their plain
+     versions on the card at the benchmark cells' shapes: ok for ok, limb
+     for limb and byte for byte on valid and invalid encodings, one launch
+     a call, rows against exact.py; CUDA-event times beside the plain
+     versions', the wrapper's host time a call and the bound;
   8. the range verifier at full width: DeviceRangeVerifier(n=64, m=16,
      batch=64), one MSM of 4,610 points. The 64 lanes repeat the four
      proofs, each lane with its own random weights. The honest batch
@@ -97,19 +104,23 @@ Phases, each printed on its own line:
      DeviceRangeProver(64, 8, 16) call ("device-batched") and on the host;
      the two equal byte for byte and every transaction verifies; the four
      MSM and Keccak kernels against their plain versions at that prover's
-     shapes; times: the median of 3 builds by each range backend, the range
-     proving apart, launches, each kernel's bound summed over one build's
-     launches, one profiled build;
+     shapes; one ristretto_encode launch for V/A/S, one for T and one for
+     each inner-product round's L/R (the kernels line's count); times: the
+     median of 3 builds by each range backend, the range proving apart,
+     launches, each kernel's bound summed over one build's launches, one
+     profiled build;
  15. batch verification: 32 transactions of config 6/6b (1 + 1 over 9
      accounts) and 4 over 64 accounts by batch_verify_transactions,
      accepted by "device-batched" (the collector's shuffle groups by shape
      and frame, the range groups, the deferred sigma MSM on the card) and
      by "host"; each of six tamperings of one transaction rejected by both
      (two of them only the device verifiers read: the host part accepts);
-     the five kernels against their plain versions at the verifiers'
-     shapes; times: the median of 3 calls of each backend on this batch and
-     on phase 14's, launches, each kernel's bound summed over one call's
-     launches, one profiled call;
+     one ristretto_decode launch a shuffle and a range verifier call and
+     one ristretto_encode a shuffle verifier call (the kernels line's
+     decode count); the five kernels against their plain versions at the
+     verifiers' shapes; times: the median of 3 calls of each backend on
+     this batch and on phase 14's, launches, each kernel's bound summed
+     over one call's launches, one profiled call;
  16. the serving layer at the deployments users run, with os.cpu_count()
      worker processes: ShuffleVerificationService on phase 11's 16 proofs as
      wire entries (row 5d) and VerificationService on phase 15's 32
@@ -237,9 +248,27 @@ KERNELS = {
     "msm_tail": ("quisquis_tpu_torch/csrc/msm_tail.cu", "quisquis_tpu/ops/pallas_point.py:392"),
     "keccak_f1600": ("quisquis_tpu_torch/csrc/keccak_f1600.cu",
                      "quisquis_tpu/ops/pallas_keccak.py:44"),
+    "ristretto_decode": ("quisquis_tpu_torch/csrc/ristretto_codec.cu",
+                         "no pallas_call: quisquis_tpu/ops/point.py decompress, a jax.jit program"),
+    "ristretto_encode": ("quisquis_tpu_torch/csrc/ristretto_codec.cu",
+                         "no pallas_call: quisquis_tpu/ops/point.py compress, a jax.jit program"),
 }
 SLICE1 = ("scalar_mul", "base_mul")
 SLICE2 = ("msm_table", "msm_acc", "msm_tail", "keccak_f1600")
+CODEC = ("ristretto_decode", "ristretto_encode")
+# squares and multiplies of one point (csrc/ristretto_codec.cu), nearly all
+# of them one dependent chain: the inverse square root's z^(2^252-3)
+CODEC_OPS = {"ristretto_decode": {"fe_mul": 27, "fe_sq": 257},
+             "ristretto_encode": {"fe_mul": 32, "fe_sq": 255}}
+# bytes a point: in and out (decode: 32 + ok + 4 coordinates; encode back)
+CODEC_BYTES = {"ristretto_decode": 32 + 1 + 4 * 40, "ristretto_encode": 4 * 40 + 32}
+# the codec calls of the benchmark's cells: a block of 32 transactions of
+# 1 + 1 over 9 accounts (the shuffle verifier's points, once for the input
+# and once for the output shuffles, the range verifier's, the shuffle
+# verifier's encodings, twice) and a build of 16 of 4 + 4
+# (DeviceRangeProver(64, 8, 16): V/A/S once, then T and each round's L/R)
+CODEC_SHAPES = {"ristretto_decode": ((32, 149), (32, 20)),
+                "ristretto_encode": ((32, 7), (160,), (32,))}
 
 
 def _flip(b: bytes) -> bytes:
@@ -338,6 +367,132 @@ def launch_bounds(seen, bound, launches) -> str:
                      f"({'/'.join(sorted({by for _, by in v}))})" for k, v in parts.items())
 
 
+def encodings(p) -> np.ndarray:
+    """The plain encoder's wire bytes of points, uint8 [..., 32] on the host."""
+    from quisquis_tpu_torch.ops import point as pt
+    return pt.compress_to_bytes_tensor(p).cpu().numpy()
+
+
+def codec_inputs(dev, shape, seed: int):
+    """(encodings uint8 [*shape, 32] on dev, the points [*shape] they
+    encode where valid): the plain encodings of random points, then every
+    other row made invalid in turn: a random string, the high bit set, a
+    non-canonical value p + k, s + 1 (odd: negative, where still below p)."""
+    from quisquis_tpu_torch.ops import cuda_point as kp
+    from quisquis_tpu_torch.ops import exact as ex
+    from quisquis_tpu_torch.ops import point as pt
+    n = math.prod(shape)
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    b[:, 31] &= 0x0F
+    points = kp.base_mul(torch.as_tensor(pt.scalar_to_nibbles(b), device=dev))
+    enc = encodings(points)
+    for i in range(1, n, 2):
+        kind = (i // 2) % 4
+        if kind == 0:
+            enc[i] = rng.integers(0, 256, size=32, dtype=np.uint8)
+        elif kind == 1:
+            enc[i, 31] |= 0x80
+        elif kind == 2:
+            enc[i] = np.frombuffer((ex.P + i % 19).to_bytes(32, "little"), np.uint8)
+        else:
+            enc[i, 0] ^= 1
+    return (torch.as_tensor(enc.reshape(*shape, 32), device=dev),
+            pt.ExtPoint(*(c.reshape(*shape, 10) for c in points)))
+
+
+def _max_abs_err(got, want) -> int:
+    """The largest difference between paired tensors' elements."""
+    return max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+
+
+def phase_codec(h, shapes=None):
+    """The ristretto codec kernels against their plain versions on the card
+    at the benchmark cells' shapes: decode limb for limb and ok for ok on
+    valid and invalid encodings, encode byte for byte on random points and
+    on what decode returned (rejected rows too), one launch a call, a few
+    rows against exact.py; the kernel's device time by graph replay, a
+    wrapper call's by CUDA events and on the host clock, the plain
+    version's by CUDA events, each shape's bound. Returns the contract's
+    JSON entries of both kernels (times at each kernel's largest shape;
+    max_abs_err over every shape; launches None: the main paths' counts,
+    phases 14-15, fill it in)."""
+    from quisquis_tpu_torch.kernel_ab import graph_ms
+    from quisquis_tpu_torch.ops import cuda_build as cb
+    from quisquis_tpu_torch.ops import cuda_point as kp
+    from quisquis_tpu_torch.ops import exact as ex
+    from quisquis_tpu_torch.ops import point as pt
+    shapes = CODEC_SHAPES if shapes is None else shapes
+    phase, dev = h.phase, h.dev
+    results = {}
+    for name in CODEC:
+        products = sum(CODEC_OPS[name][k] * PRODUCTS[k] for k in PRODUCTS)
+        rows, err = [], 0
+        for j, shape in enumerate(shapes[name]):
+            enc, points = codec_inputs(dev, shape, SEED + 97 * j)
+            n = math.prod(shape)
+            if name == "ristretto_decode":
+                run = lambda: kp.decode_bytes(enc)  # noqa: E731
+                plain = lambda: pt.decompress_bytes_tensor(enc)  # noqa: E731
+            else:
+                run = lambda: kp.encode_bytes(points)  # noqa: E731
+                plain = lambda: pt.compress_to_bytes_tensor(points)  # noqa: E731
+            before = cb.LAUNCHES[name]
+            got = run()
+            check(cb.LAUNCHES[name] == before + 1, f"{name} {shape}: one launch a call")
+            if name == "ristretto_decode":
+                ok, got = got
+                p_ok, want = plain()
+                e = _max_abs_err((ok, *got), (p_ok, *want))
+                check(e == 0 and ok.shape == p_ok.shape,
+                      f"{name} {shape} == plain, ok for ok and limb for limb")
+                flat_ok = ok.reshape(-1).cpu()
+                check(bool(flat_ok[0::2].all()), f"{name} {shape}: every valid encoding decodes")
+                check(not bool(flat_ok[3::8].any() | flat_ok[5::8].any()),
+                      f"{name} {shape}: high-bit and non-canonical encodings rejected")
+                flat_enc = enc.reshape(-1, 32).cpu().numpy()
+                for i in range(min(n, 16)):
+                    check(bool(flat_ok[i]) == (ex.ristretto_decode(bytes(flat_enc[i])) is not None),
+                          f"{name} {shape} row {i}: ok == exact.py's")
+            else:
+                _, dec = kp.decode_bytes(enc)
+                e = _max_abs_err((got, kp.encode_bytes(dec)),
+                                 (plain(), pt.compress_to_bytes_tensor(dec)))
+                check(e == 0 and got.shape == (*shape, 32),
+                      f"{name} {shape} == plain, byte for byte, on random points and on decoded "
+                      f"limbs (rejected rows too)")
+                host = pt.to_exact_batch(pt.ExtPoint(*(c.reshape(-1, 10)[:16] for c in points)))
+                flat = got.reshape(-1, 32).cpu().numpy()
+                for i, p_ in enumerate(host):
+                    check(bytes(flat[i]) == ex.ristretto_encode(p_),
+                          f"{name} {shape} row {i} == exact.py's encoding")
+            err = max(err, e)
+            h.sync()
+            ms = graph_ms(run)
+            events_ms = time_ms(run, reps=50, warmup=3)
+            t0 = time.perf_counter()
+            for _ in range(50):
+                run()
+            host_ms = (time.perf_counter() - t0) / 50 * 1e3
+            h.sync()
+            plain_ms = time_once(plain)[1]
+            b_ms, b_by = h.bound(n * products, n * CODEC_BYTES[name])
+            rows.append((n, ms, plain_ms, b_ms, b_by))
+            h.say(phase, f"{name} {shape} ({n} points): kernel {ms:.4f} ms by graph replay, "
+                         f"{events_ms:.4f} ms a call by CUDA events over 50 wrapper calls, the "
+                         f"wrapper's host time {host_ms:.4f} ms a call, plain {plain_ms:.2f} ms; "
+                         f"bound {b_ms:.6f} ms ({b_by}: {n * products:.4e} limb products), "
+                         f"chain floor ~285 dependent field operations a thread; == plain and "
+                         f"exact.py; 1 launch a call [{h.card}]")
+        n, ms, plain_ms, b_ms, b_by = max(rows)
+        results[name] = {
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        }
+    return results
+
+
 def phase_tx_build(h, n_tx=TX_BUILD, n_senders=TX_SENDERS, n_accounts=TX_ACCOUNTS,
                    reps=TX_REPS):
     """Transaction building at config 6e's width: batch_create_transactions
@@ -373,7 +528,8 @@ def phase_tx_build(h, n_tx=TX_BUILD, n_senders=TX_SENDERS, n_accounts=TX_ACCOUNT
     out_dev = build(reqs, "device-batched")
     first_s = time.perf_counter() - t0
     launches = {k: v for k, v in cb.LAUNCHES.items() if v}
-    check(set(launches) == set(SLICE2), f"batch_create_transactions launches {launches}")
+    check(set(launches) == {*SLICE2, "ristretto_encode"},
+          f"batch_create_transactions launches {launches}")
     check([k[:3] for k in rdp._PROVER_CACHE] == [(n_bits, m, n_tx)],
           f"one DeviceRangeProver call of ({n_bits}, {m}, {n_tx}): {list(rdp._PROVER_CACHE)}")
     out_host = build(benchmark_requests(b"chip-smoke-6e", n_tx, n_senders, n_accounts), "host")
@@ -403,6 +559,10 @@ def phase_tx_build(h, n_tx=TX_BUILD, n_senders=TX_SENDERS, n_accounts=TX_ACCOUNT
                  f"{launch_bounds(seen, h.bound, _launched(cb))} [{h.card}]")
     acc_calls = seen["acc"]
     check(len(acc_calls) == 2 + drp.k, f"{len(acc_calls)} msm_acc calls a build")
+    # one encode launch for V/A/S, one for T and one for each round's L/R
+    h.codec_launches["ristretto_encode"] = n_enc = cb.LAUNCHES["ristretto_encode"]
+    check(n_enc == 2 + drp.k and cb.LAUNCHES["ristretto_decode"] == 0,
+          f"ristretto_encode launches a build: {n_enc}, want 2 + {drp.k} rounds")
     basis = drp._basis
     kpad = basis.table().x.shape[-1]
     flat_b = pt.ExtPoint(*(torch.cat([c, e]) for c, e in
@@ -511,6 +671,8 @@ def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
     from quisquis_tpu_torch.ops import msm as qmsm
     from quisquis_tpu_torch.ops import point as pt
     from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks, DeviceBatchCollector
+    from quisquis_tpu_torch.bulletproofs.device_verify import DeviceRangeVerifier
+    from quisquis_tpu_torch.shuffle.device_verify import DeviceShuffleVerifier
     from quisquis_tpu_torch.transaction import (batch_create_transactions,
                                                 batch_verify_transactions, verify_transaction)
     from quisquis_tpu_torch.transaction.workloads import benchmark_requests
@@ -530,7 +692,8 @@ def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
     cb.reset_launches()
     verify(items, "device-batched")   # raises unless every transaction verifies
     launches = {k: v for k, v in cb.LAUNCHES.items() if v}
-    check(set(launches) == set(SHUFFLE_KERNELS), f"device-batched verify launches {launches}")
+    check(set(launches) == {*SHUFFLE_KERNELS, *CODEC},
+          f"device-batched verify launches {launches}")
     verify(items, "host")
     rejected = []
     at = min(5, len(items) - 1)
@@ -562,10 +725,13 @@ def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
 
     # the kernels at the device verifiers' shapes: one more verify records
     # their inputs (the largest call of each kind is held to the plain one)
+    # and counts the verifiers' calls
     seen, restore = h.keep_calls([(kp, "scalar_mul", "sm"), (qmsm, "msm_rows", "rows"),
                                   (qmsm, "msm", "msm"), (kk, "f1600", "keccak"),
                                   (kp, "msm_table", "table"), (kp, "msm_window_sums", "acc"),
-                                  (kp, "msm_tail", "tail")])
+                                  (kp, "msm_tail", "tail"),
+                                  (DeviceShuffleVerifier, "verify", "shuffle verifier"),
+                                  (DeviceRangeVerifier, "verify", "range verifier")])
     cb.reset_launches()
     try:
         verify(items, "device-batched")
@@ -573,6 +739,15 @@ def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
         restore()
     h.say(phase, f"bounds summed over one call's launches (the points the data needs): "
                  f"{launch_bounds(seen, h.bound, _launched(cb))} [{h.card}]")
+    # a shuffle verifier call decodes its points and encodes its DDH and
+    # comparison points once; a range verifier call decodes once
+    n_sh, n_rv = len(seen["shuffle verifier"]), len(seen["range verifier"])
+    codec = {k: cb.LAUNCHES[k] for k in CODEC}
+    check((n_sh, n_rv) == (4, 1), f"verifier calls: {n_sh} shuffle (want the input and output "
+                                  f"shuffles of two widths, 4), {n_rv} range (want 1)")
+    check(codec == {"ristretto_decode": n_sh + n_rv, "ristretto_encode": n_sh},
+          f"codec launches a verify {codec}, want {n_sh} + {n_rv} decodes, {n_sh} encodes")
+    h.codec_launches["ristretto_decode"] = codec["ristretto_decode"]
     nib_p, pts_p = max(seen["sm"], key=lambda a: a[0].shape[0])
     h.same(kp.scalar_mul(nib_p, pts_p), pt.scalar_mul(nib_p, pts_p), "scalar_mul",
            f"the transaction shuffle verifier's {nib_p.shape[0]} product lanes")
@@ -764,7 +939,7 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
                     restore()
                     kept = max(seen["msm"], key=lambda a: a[0].shape[0])
             launches = _launched(cb)
-            want = {"device": set(msm_kernels), "device-batched": set(SHUFFLE_KERNELS)}
+            want = {"device": set(msm_kernels), "device-batched": {*SHUFFLE_KERNELS, *CODEC}}
             check(set(launches) == want.get(svc.backend, set()),
                   f"{svc.backend} service launches {launches}")
             for b, c in zip(bad, chunk):
@@ -1086,8 +1261,10 @@ def phase_sharded(h, d, world=SHARDED_WORLD, reps=SHARDED_REPS):
         ("transactions tampered", "transactions",
          (tx_tampered(d.txs, "sigma response", 3), seed, RANGE_N), 1),
     ]
-    kernels = {"msm": msm_kernels, "schnorr": msm_kernels, "range verify": SLICE2,
-               "shuffle verify": SHUFFLE_KERNELS, "range prove": SLICE2, "shuffle prove": SLICE2,
+    kernels = {"msm": msm_kernels, "schnorr": msm_kernels,
+               "range verify": (*SLICE2, "ristretto_decode"),
+               "shuffle verify": (*SHUFFLE_KERNELS, *CODEC),
+               "range prove": (*SLICE2, "ristretto_encode"), "shuffle prove": (*SLICE2, *CODEC),
                "transactions": msm_kernels}
     t0 = time.perf_counter()
     reports = parallel.launch(SHARDED_PROGRAM, world, dev.type, timeout_s=600, args=(calls, reps))
@@ -1220,7 +1397,10 @@ def profile_line(fn, card: str, what: str, names) -> str:
     by_name["torch ops"] = 0.0
     spans = []
     for e in kernels:
-        key = next((k for k in by_name if k in e.name), "torch ops")
+        key = next((k for k in by_name if k in e.name), None)
+        if key is None:  # the codec kernels, listed where they ran
+            key = next((f"{k}_kernel" for k in CODEC if f"{k}_kernel" in e.name), "torch ops")
+            by_name.setdefault(key, 0.0)
         by_name[key] += e.time_range.elapsed_us()
         spans.append((e.time_range.start, e.time_range.end))
     busy, end = 0.0, float("-inf")
@@ -1499,7 +1679,8 @@ def phases(pool) -> int:
         shuffle_sets[m_] = [Account.generate_account(RistrettoPublicKey.from_secret_key(
             RistrettoSecretKey.random(srng), srng), srng)[0] for _ in range(m_ * m_)]
     cb.load_library()
-    say(2, f"{len(cb.KERNEL_SOURCES)} kernels built or loaded in {cb.build_seconds():.1f} s")
+    say(2, f"{len(cb.KERNELS)} kernels in {len(cb.KERNEL_SOURCES)} sources built or loaded in "
+           f"{cb.build_seconds():.1f} s")
     check(hs.available(), f"the C++ host STROBE builds and loads: {hs.build_error()}")
     check(transcript_mod.Strobe128 is hs.NativeStrobe128,
           "the host transcripts use the C++ STROBE")
@@ -1580,7 +1761,7 @@ def phases(pool) -> int:
     k_out = kp.base_mul(nib_bm)
     err["base_mul"] = limb_err(k_out, pt.base_mul(nib_bm))
     check(err["base_mul"] == 0, "base_mul kernel == plain, limb for limb")
-    k_enc = pt.compress_to_bytes(pt.ExtPoint(*(c[:11] for c in k_out)))
+    k_enc = encodings(pt.ExtPoint(*(c[:11] for c in k_out)))
     for i, v in enumerate(scalars_of(nib_bm[:11])):
         check(bytes(k_enc[i]) == ex.ristretto_encode(ex.pt_base_mul(v % ex.L)),
               f"base_mul row {i} == exact")
@@ -1639,7 +1820,7 @@ def phases(pool) -> int:
     idx = torch.as_tensor(lanes, device=dev)
 
     def enc_rows(p):
-        return [bytes(r) for r in pt.compress_to_bytes(pt.ExtPoint(*(c[idx] for c in p)))]
+        return [bytes(r) for r in encodings(pt.ExtPoint(*(c[idx] for c in p)))]
 
     got = [enc_rows(p) for p in (new_pk.gr, new_pk.grsk, new_comm.c, new_comm.d)]
     ks, sks, rs, uks, css = (ints_of(b, lanes) for b in (key_b, sk_b, r_b, uk_b, cs_b))
@@ -1661,7 +1842,7 @@ def phases(pool) -> int:
     # -- phase 5: the Account-object path ---------------------------------
     m = N_ACCOUNTS
     head = torch.arange(m, device=dev)
-    wire = [pt.compress_to_bytes(pt.ExtPoint(*(c[head] for c in p)))
+    wire = [encodings(pt.ExtPoint(*(c[head] for c in p)))
             for p in (new_pk.gr, new_pk.grsk, new_comm.c, new_comm.d)]
     accounts = [Account(RistrettoPublicKey(bytes(wire[0][i]), bytes(wire[1][i])),
                         ElGamalCommitment(bytes(wire[2][i]), bytes(wire[3][i])))
@@ -1681,6 +1862,11 @@ def phases(pool) -> int:
         accounts, values, base_pk, SeededRng(seed=b"chip-smoke-delta"), device="cuda")
     acct_launches = slice1_launches()
     check(acct_launches == {"scalar_mul": 8, "base_mul": 3}, f"account launches {acct_launches}")
+    # encodes: the updated keys' and commitments' four coordinates, the
+    # delta and the epsilon commitments' two each; nothing is decoded
+    acct_codec = {k: cb.LAUNCHES[k] for k in CODEC}
+    check(acct_codec == {"ristretto_decode": 0, "ristretto_encode": 8},
+          f"account codec launches {acct_codec}")
     for i in range(16):
         host = Account.update_account(accounts[i], bl5[i], uk5[i], cs5[i])
         check(upd[i].as_bytes() == host.as_bytes(), f"update row {i} == host")
@@ -1691,7 +1877,8 @@ def phases(pool) -> int:
         check(eps[i].as_bytes() == he.as_bytes(), f"epsilon row {i} == host")
     check(sum(rs5) % ex.L == 0, "delta rscalars sum to 0")
     say(5, f"{m} Accounts from phase 4 wire bytes: update_accounts_device + delta/epsilon "
-           f"(launches {acct_launches}), 16 rows byte-identical to host; update_accounts_device "
+           f"(launches {acct_launches}, {acct_codec}), 16 rows byte-identical to host; "
+           f"update_accounts_device "
            f"{upd_s:.3f} s = {m / upd_s:.1f} accounts/s (host clock, host conversions included)")
     # the sigma phase's inputs from these Accounts: delta/epsilon pairs (phase
     # 5's own at n = 1,024) and zero-balance accounts (commitments to 0);
@@ -1804,7 +1991,7 @@ def phases(pool) -> int:
         whole = kp.msm_rows(nib_rk, pts_rk) if rows > 1 else \
             pt.ExtPoint(*(c[None] for c in kp.msm(nib7, pts7)))
         same(whole, out7, "msm_tail", f"{what}, msm_rows / msm == the three stages")
-        enc7 = pt.compress_to_bytes(whole)
+        enc7 = encodings(whole)
         host_s, host_p = scalars_of(nib7), pt.to_exact_batch(pts7)
         for r in range(rows):
             want = ex.pt_msm(host_s[r * k:(r + 1) * k], host_p[r * k:(r + 1) * k])
@@ -1826,6 +2013,10 @@ def phases(pool) -> int:
            f"R=8 k=200 == plain versions limb for limb, msm and msm_rows == exact.pt_msm; "
            f"keccak_f1600 at B=1, 64, 1000 == plain and host permutation byte for byte; "
            f"max_abs_err { {k: err[k] for k in SLICE2} }")
+
+    # -- phase 7b: the ristretto codec kernels at the benchmark's shapes -----
+    results.update(phase_codec(types.SimpleNamespace(
+        phase="7b", dev=dev, card=card, say=say, bound=bound, sync=torch.cuda.synchronize)))
 
     # -- phase 8: the range verifier at full width --------------------------
     host_range_s = [p[3] for p in proved]
@@ -2025,8 +2216,9 @@ def phases(pool) -> int:
                              Verifier(b"DLOGProof", Transcript(b"ZeroBalance")))
         check(ok_d and ok_z, f"n={n_s}: honest sigma proofs accepted")
         check(not bad_d and not bad_z, f"n={n_s}: zv + 1 and z + 1 rejected")
-        check(l_d == {"scalar_mul": 1, "base_mul": 1}, f"delta-compact launches {l_d}")
-        check(l_z == {"scalar_mul": 1}, f"zero-balance launches {l_z}")
+        codec = dict.fromkeys(CODEC, 1)
+        check(l_d == {"scalar_mul": 1, "base_mul": 1, **codec}, f"delta-compact launches {l_d}")
+        check(l_z == {"scalar_mul": 1, **codec}, f"zero-balance launches {l_z}")
         rows = case["sample"]
         seen = {}
         real_sm, real_bm = kp.scalar_mul, kp.base_mul
@@ -2081,10 +2273,13 @@ def phases(pool) -> int:
     cb.reset_launches()
     dsv.verify(entries, rng=srng_w)  # raises unless the batch verifies
     sh_launches = {k: v for k, v in cb.LAUNCHES.items() if v}
-    check(set(sh_launches) == set(SHUFFLE_KERNELS), f"shuffle verify launches {sh_launches}")
+    check(set(sh_launches) == {*SHUFFLE_KERNELS, *CODEC},
+          f"shuffle verify launches {sh_launches}")
     check(sh_launches["scalar_mul"] == 1 and all(sh_launches[k] == 2 for k in
-                                                 ("msm_table", "msm_acc", "msm_tail")),
-          f"one scalar_mul, one rows MSM and one final MSM per verify: {sh_launches}")
+                                                 ("msm_table", "msm_acc", "msm_tail"))
+          and all(sh_launches[k] == 1 for k in CODEC),
+          f"one scalar_mul, one rows MSM, one final MSM, one decode and one encode per verify: "
+          f"{sh_launches}")
     rejected = []
     for lane, what in enumerate(SHUFFLE_TAMPERS, start=3):
         bad = shuffle_tampered(entries, what, lane)
@@ -2385,9 +2580,9 @@ def phases(pool) -> int:
         seen_ = {key: [] for _, _, key in patches}
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
         for (mod, name, key), (_, _, real) in zip(patches, saved):
-            def keep(*a, _real=real, _key=key):
+            def keep(*a, _real=real, _key=key, **kw):
                 seen_[_key].append(a)
-                return _real(*a)
+                return _real(*a, **kw)
             setattr(mod, name, keep)
 
         def restore():
@@ -2560,7 +2755,7 @@ def phases(pool) -> int:
     got8 = dsp.prove(*shuffle_args(sh8))
     first_s = time.perf_counter() - t0
     first_launches = {k: v for k, v in cb.LAUNCHES.items() if v}
-    check(set(first_launches) == set(SLICE2), f"shuffle prove launches {first_launches}")
+    check(set(first_launches) == {*SLICE2, *CODEC}, f"shuffle prove launches {first_launches}")
     same_proofs(got8, sh8, f"m={m8}")
     dsv.verify([(p_, s_, e[2], e[3]) for (p_, s_), e in zip(got8, entries)], rng=srng_w)
     cb.reset_launches()
@@ -2659,12 +2854,14 @@ def phases(pool) -> int:
     helpers = types.SimpleNamespace(
         dev=dev, card=card, err=err, same=same, stages_against_plain=stages_against_plain,
         rows_against_plain=rows_against_plain, keep_calls=keep_calls, median_ms=median_ms,
-        sync=torch.cuda.synchronize, say=say, bound=bound,
+        sync=torch.cuda.synchronize, say=say, bound=bound, codec_launches={},
         profile=lambda fn, what, names: profile_line(fn, card, what, names))
     helpers.phase = 14
     built = phase_tx_build(helpers)
     helpers.phase = 15
     verified = phase_tx_verify(helpers, built)
+    for name in CODEC:   # their launches on the main paths: a build, a verify
+        results[name]["launches"] = helpers.codec_launches[name]
 
     # -- phase 16: the serving layer and the daemon ----------------------------
     helpers.phase, helpers.pool = 16, pool

@@ -15,8 +15,8 @@ from typing import List, Sequence, Tuple
 
 from ..device import resolve_device
 from ..ops import batch as qb
+from ..ops import cuda_point as kp
 from ..ops import exact as ex
-from ..ops import point as pt
 from ..primitives.elgamal import ElGamalCommitment
 from ..primitives.keys import RistrettoPublicKey
 from .accounts import Account
@@ -26,8 +26,8 @@ L = ex.L
 
 
 def _comm_to_host(comm: qb.BatchCommitment) -> List[ElGamalCommitment]:
-    c_bytes = pt.compress_to_bytes(comm.c)
-    d_bytes = pt.compress_to_bytes(comm.d)
+    c_bytes = kp.encode_bytes(comm.c).cpu().numpy()
+    d_bytes = kp.encode_bytes(comm.d).cpu().numpy()
     return [ElGamalCommitment(bytes(cb), bytes(db)) for cb, db in zip(c_bytes, d_bytes)]
 
 
@@ -67,8 +67,8 @@ def update_accounts_device(
         qb.scalars_to_device([v % L for v in bl], dev),
         qb.scalars_to_device(list(update_key_scalars), dev),
         qb.scalars_to_device(list(commitment_scalars), dev))
-    gr_bytes = pt.compress_to_bytes(new_pk.gr)
-    grsk_bytes = pt.compress_to_bytes(new_pk.grsk)
+    gr_bytes = kp.encode_bytes(new_pk.gr).cpu().numpy()
+    grsk_bytes = kp.encode_bytes(new_pk.grsk).cpu().numpy()
     comm_host = _comm_to_host(new_comm)
     return [
         Account(RistrettoPublicKey(bytes(g), bytes(h)), c)

@@ -43,7 +43,7 @@ def _products(blobs: Sequence[bytes], scalars: Sequence[int], dev: torch.device)
     """s_i * P_i for wire points P_i decoded on the device, in one
     ``scalar_mul`` launch: (all decoded?, products [k])."""
     wire = np.frombuffer(b"".join(blobs), np.uint8).reshape(len(blobs), 32).copy()
-    ok, points = pt.decompress_bytes_tensor(torch.as_tensor(wire, device=dev))
+    ok, points = kp.decode_bytes(torch.as_tensor(wire, device=dev))
     return ok.all(), kp.scalar_mul(qb.scalars_to_device(scalars, dev), points)
 
 
@@ -54,7 +54,7 @@ def _rows(p: pt.ExtPoint, k: int) -> pt.ExtPoint:
 def _encodings(ok: torch.Tensor, points: pt.ExtPoint) -> np.ndarray:
     """Wire encodings [..., 32] of the points; raises if a point failed to
     decode. Only these bytes and one boolean leave the device."""
-    enc = pt.compress_to_bytes(points)
+    enc = kp.encode_bytes(points).cpu().numpy()
     if not bool(ok):
         raise ValueError("Account Verify: Failed (a point does not decode)")
     return enc

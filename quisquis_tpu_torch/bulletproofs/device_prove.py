@@ -37,6 +37,7 @@ import torch
 
 from ..accounts.transcript import Transcript
 from ..device import resolve_device
+from ..ops import cuda_point as kp
 from ..ops import exact as ex
 from ..ops import msm as qmsm
 from ..ops import point as pt
@@ -139,7 +140,7 @@ class DeviceRangeProver:
         nib = torch.cat([v_nib, sf.to_nibbles(torch.stack([a_row, s_row], dim=1))], dim=1)
         vas = qmsm.msm_shared_rows(nib.reshape(B * (m + 2), 2 + 2 * nm, pt.NWINDOWS),
                                    self._basis)
-        enc = pt.compress_to_bytes_tensor(vas).reshape(B, m + 2, 32)
+        enc = kp.encode_bytes(vas).reshape(B, m + 2, 32)
         V_b, A_b, S_b = enc[:, :m], enc[:, m], enc[:, m + 1]
 
         # ----- transcript to y, z
@@ -173,7 +174,7 @@ class DeviceRangeProver:
                               torch.stack([t2, t2_blind], dim=1)], dim=1)   # [B, 2, 2, 10]
         T = qmsm.msm_shared_rows(sf.to_nibbles(t_rows).reshape(B * 2, 2, pt.NWINDOWS),
                                  self._pc_basis)
-        T_enc = pt.compress_to_bytes_tensor(T).reshape(B, 2, 32)
+        T_enc = kp.encode_bytes(T).reshape(B, 2, 32)
         dt.append_message(b"T_1", T_enc[:, 0], 32)
         dt.append_message(b"T_2", T_enc[:, 1], 32)
         x = sf.from_bytes_wide(dt.get_challenge_bytes(b"x"))
@@ -217,7 +218,7 @@ class DeviceRangeProver:
                                 torch.cat([c_Rw[:, None], zero_col, gR, hR], dim=1)], dim=1)
             LR = qmsm.msm_shared_rows(sf.to_nibbles(rows).reshape(B * 2, 2 + 2 * nm,
                                                                   pt.NWINDOWS), self._basis)
-            LR_enc = pt.compress_to_bytes_tensor(LR).reshape(B, 2, 32)
+            LR_enc = kp.encode_bytes(LR).reshape(B, 2, 32)
             L_out.append(LR_enc[:, 0])
             R_out.append(LR_enc[:, 1])
             dt.append_message(b"L", LR_enc[:, 0], 32)

@@ -32,6 +32,7 @@ import torch
 
 from ..accounts.transcript import Transcript
 from ..device import resolve_device
+from ..ops import cuda_point as kp
 from ..ops import exact as ex
 from ..ops import field as fe
 from ..ops import msm as qmsm
@@ -118,7 +119,7 @@ class DeviceRangeVerifier:
         states. Returns a 0-d bool tensor."""
         n, m, nm, k = self.n, self.m, self.nm, self.k
         B = comp.shape[0]
-        ok_pts, pts = pt.decompress_bytes_tensor(comp)  # [B, P]
+        ok_pts, pts = kp.decode_bytes(comp)  # [B, P]
         all_ok = ok_pts.all()
 
         t_x, t_x_b, e_b, ipp_a, ipp_b = sf.from_bytes(scal).unbind(1)

@@ -6,10 +6,11 @@ multiply-adds.
         [--only msm_table keccak_f1600]
 
 ``--old-csrc`` is the ``csrc`` directory of the other checkout (for
-example the parent commit unpacked with ``git archive``). Its six kernel
-sources (or those ``--only`` names) are built with the same nvcc flags
-into ``build/kernel_ab/``; their C entry points must have the signatures
-of ``ops/cuda_build.py``. The script prints:
+example the parent commit unpacked with ``git archive``). The sources of
+the kernels of ``ops/cuda_build.py`` that it holds (or of those ``--only``
+names) are built with the same nvcc flags into ``build/kernel_ab/``;
+their C entry points must have the signatures of ``ops/cuda_build.py``.
+The script prints:
 
 1. the card's name and power limit (nvidia-smi) and ptxas's registers,
    stack and spills of both builds;
@@ -19,6 +20,9 @@ of ``ops/cuda_build.py``. The script prints:
    formula may change limbs, :data:`AS_POINTS`); scalar_mul and base_mul
    at N = 16,384 and msm_acc and msm_tail at both MSM shapes limb for
    limb; keccak_f1600 at 64 and 1,024 states byte for byte;
+   ristretto_decode and ristretto_encode at the block's
+   :data:`CODEC_POINTS` points (ok for ok and limb for limb, byte for
+   byte), every other encoding made invalid;
 3. each kernel's device time by replaying a CUDA graph that captured
    :data:`GRAPH_LAUNCHES` back-to-back launches, in turns: old, new, new,
    old; beside it the time of the same launches issued one by one from
@@ -71,7 +75,7 @@ CHANGED = ("msm_table", "keccak_f1600")
 #: kernels compared across builds as projective points, not limb for limb
 AS_POINTS = ("msm_table",)
 GRAPH_LAUNCHES = 20
-_OLD_ENTRIES = dict(cb.KERNELS)
+CODEC_POINTS = 32 * 149   # a block's decode call: 32 lanes of the shuffle verifier
 
 IMAD_SRC = r"""
 #include <stdint.h>
@@ -235,9 +239,12 @@ def sass_summary(so: Path, kernel: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", required=True, type=Path)
-    ap.add_argument("--only", nargs="+", choices=tuple(_OLD_ENTRIES), default=tuple(_OLD_ENTRIES),
-                    help="compare and time these kernels only (default: all six)")
+    ap.add_argument("--only", nargs="+", choices=tuple(cb.KERNELS),
+                    help="compare and time these kernels only (default: every kernel whose "
+                         "source the other checkout has)")
     args = ap.parse_args()
+    names = args.only or tuple(k for k, (src, _, _) in cb.KERNELS.items()
+                               if (args.old_csrc / src).is_file())
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA GPU is available", file=sys.stderr)
         return 1
@@ -249,11 +256,11 @@ def main() -> int:
 
     new_lib = cb.load_library()
     print("new build (this checkout):")
-    print("\n".join(ptxas_lines(cb.build_log(), tuple(_OLD_ENTRIES))))
+    print("\n".join(ptxas_lines(cb.build_log(), names)))
     out_dir = cb.build_root().parent / "kernel_ab"
     old = {}
-    for name in args.only:
-        src, entry, argtypes = _OLD_ENTRIES[name]
+    for name in names:
+        src, entry, argtypes = cb.KERNELS[name]
         lib, log = nvcc_shared([args.old_csrc / src], out_dir, f"old_{name}.so")
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = argtypes, _CI
@@ -264,7 +271,7 @@ def main() -> int:
     # both builds run through their C entry points on preallocated outputs,
     # so no time below holds the torch wrappers' host work (which takes
     # longer than a 50 us kernel)
-    libs = {"old": old, "new": {k: getattr(new_lib, cb.KERNELS[k][1]) for k in args.only}}
+    libs = {"old": old, "new": {k: getattr(new_lib, cb.KERNELS[k][1]) for k in names}}
 
     def call(side, name, *cargs):
         rc = libs[side][name](*cargs, torch.cuda.current_stream().cuda_stream)
@@ -301,6 +308,13 @@ def main() -> int:
                                                          for c in pts)))
         return rows, digits, flat, kp.msm_table(flat)
 
+    # the codec: encodings of random points, every other one made invalid
+    codec_pts = kp.base_mul(nibbles(CODEC_POINTS))
+    codec_enc = pt.compress_to_bytes_tensor(codec_pts)
+    codec_enc[1::4] = torch.as_tensor(rng.integers(0, 256, size=(CODEC_POINTS // 4, 32),
+                                                   dtype=np.uint8), device=dev)
+    codec_enc[3::4, 31] |= 0x80
+
     one = f"N={N_SCALAR}"
     msm_in = {"1 row": msm_inputs(1, TAIL_POINTS), f"R={TAIL_ROWS}": msm_inputs(TAIL_ROWS, TAIL_K)}
     sums = {key: kp.msm_window_sums(d, t, rows) for key, (rows, d, _, t) in msm_in.items()}
@@ -313,6 +327,17 @@ def main() -> int:
             first = ((nib.data_ptr(), *ptrs(base)) if name == "scalar_mul" else
                      (niels.data_ptr(), nib.data_ptr()))
             call(side, name, *first, *ptrs(o), N_SCALAR)
+            return o
+        if name == "ristretto_decode":
+            ok = outs.setdefault((side, name, "ok"), torch.empty(CODEC_POINTS, dtype=torch.uint8,
+                                                                  device=dev))
+            o = outs.setdefault((side, name), empty((CODEC_POINTS, fe.NLIMBS)))
+            call(side, name, codec_enc.data_ptr(), ok.data_ptr(), *ptrs(o), CODEC_POINTS)
+            return ok, o
+        if name == "ristretto_encode":
+            o = outs.setdefault((side, name), torch.empty((CODEC_POINTS, 32), dtype=torch.uint8,
+                                                          device=dev))
+            call(side, name, *ptrs(codec_pts), o.data_ptr(), CODEC_POINTS)
             return o
         if name == "keccak_f1600":
             st = states[key]
@@ -340,7 +365,9 @@ def main() -> int:
         cases += [(name, "1 row", f"1 row of {TAIL_POINTS} points", 20),
                   (name, f"R={TAIL_ROWS}", f"{TAIL_ROWS} rows of {TAIL_K} points", 20)]
     cases += [("keccak_f1600", key, key, 50) for key in states]
-    cases = [c for c in cases if c[0] in args.only]
+    codec = f"{CODEC_POINTS} points"
+    cases += [(name, codec, codec, 50) for name in ("ristretto_decode", "ristretto_encode")]
+    cases = [c for c in cases if c[0] in names]
     same = {}
     for name, key, _, _ in cases:
         a, b = run("old", name, key), run("new", name, key)
@@ -348,11 +375,21 @@ def main() -> int:
             same[f"{name} {key}"] = torch.equal(a, b) and torch.equal(
                 b, device_keccak.f1600_plain(states[key]))
             continue
+        if name == "ristretto_decode":
+            p_ok, p_pts = pt.decompress_bytes_tensor(codec_enc)
+            same[f"{name} {key}"] = (torch.equal(a[0], b[0]) and same_limbs(a[1], b[1])
+                                     and torch.equal(b[0].bool(), p_ok) and same_limbs(b[1], p_pts))
+            continue
+        if name == "ristretto_encode":
+            same[f"{name} {key}"] = torch.equal(a, b) and torch.equal(
+                b, pt.compress_to_bytes_tensor(codec_pts))
+            continue
         if name in ("msm_table", "msm_acc"):
             a, b = limbs_last(a), limbs_last(b)
         same[f"{name} {key}"] = same_points(a, b) if name in AS_POINTS else same_limbs(a, b)
-    print(f"old == new ({', '.join(AS_POINTS)} as projective points, keccak_f1600 byte for "
-          f"byte and == the plain version, the others limb for limb): {same}", flush=True)
+    print(f"old == new ({', '.join(AS_POINTS)} as projective points, keccak_f1600 and "
+          f"ristretto_encode byte for byte and == the plain version, ristretto_decode also; the "
+          f"others limb for limb): {same}", flush=True)
     if not all(same.values()):
         print("kernel_ab: the two builds disagree", file=sys.stderr)
         return 1
@@ -367,7 +404,7 @@ def main() -> int:
               f"one, CUDA events over {reps}: {t[0]:.4f}, {t[1]:.4f}, {t[2]:.4f}, {t[3]:.4f} ms, "
               f"old/new = {(t[0] + t[3]) / (t[1] + t[2]):.2f} [{card}]", flush=True)
 
-    for kernel in (k for k in CHANGED if k in args.only):
+    for kernel in (k for k in CHANGED if k in names):
         print(sass_summary(Path(new_lib._name), f"{kernel}_kernel"), flush=True)
         print("  old: " + sass_summary(out_dir / f"old_{kernel}.so", f"{kernel}_kernel"),
               flush=True)

@@ -39,8 +39,11 @@ KERNELS = {
     "msm_acc": ("msm_acc.cu", "qq_msm_acc", [_VP] * 9 + [_CI, _CI, _CI, _VP]),
     "msm_tail": ("msm_tail.cu", "qq_msm_tail", [_VP] * 10 + [_CI, _CI, _VP]),
     "keccak_f1600": ("keccak_f1600.cu", "qq_keccak_f1600", [_VP, _VP, _CI, _VP]),
+    "ristretto_decode": ("ristretto_codec.cu", "qq_ristretto_decode", [_VP] * 6 + [_CI, _VP]),
+    "ristretto_encode": ("ristretto_codec.cu", "qq_ristretto_encode", [_VP] * 5 + [_CI, _VP]),
 }
-KERNEL_SOURCES = tuple(src for src, _, _ in KERNELS.values())
+#: each source once: a file may hold several kernels
+KERNEL_SOURCES = tuple(dict.fromkeys(src for src, _, _ in KERNELS.values()))
 
 #: kernel launches per wrapper; callers may reset them to 0
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -1,6 +1,9 @@
 """Wrappers of the port's CUDA point kernels; the counterpart of the JAX
 package's ``ops/pallas_point.py``.
 
+* :func:`decode_bytes` and :func:`encode_bytes` launch
+  ``csrc/ristretto_codec.cu`` (ristretto255 decode and encode), in the
+  spans ``ops.point.decode`` and ``ops.point.encode``,
 * :func:`scalar_mul` launches ``csrc/scalar_mul.cu`` (variable-base s*P),
 * :func:`base_mul` launches ``csrc/base_mul.cu`` (fixed-base s*B),
 * :func:`msm_table`, :func:`msm_window_sums` and :func:`msm_tail` launch
@@ -47,6 +50,44 @@ def _empty_point(shape, device: torch.device) -> pt.ExtPoint:
 
 def _ptrs(p: pt.ExtPoint):
     return (c.data_ptr() for c in p)
+
+
+def decode_bytes(b: torch.Tensor):
+    """Ristretto decode: uint8 [..., 32] -> (ok bool [...], ExtPoint [...]),
+    non-canonical encodings rejected (:func:`point.decompress_bytes_tensor`)."""
+    if _device_kind(b, "decode_bytes") == "cpu":
+        return pt.decompress_bytes_tensor(b)
+    with span("ops.point.decode"):
+        if b.dim() == 0 or b.shape[-1] != 32:
+            raise ValueError(f"decode_bytes: expected [..., 32] bytes, got {list(b.shape)}")
+        dev, lead = b.device, b.shape[:-1]
+        flat = b.reshape(-1, 32).contiguous()
+        n = flat.shape[0]
+        check_tensor(flat, "b", (n, 32), dev, torch.uint8)
+        ok = torch.empty((n,), dtype=torch.bool, device=dev)  # the kernel writes 0 or 1
+        out = _empty_point((n, fe.NLIMBS), dev)
+        if n:
+            launch("ristretto_decode", dev, flat.data_ptr(), ok.data_ptr(), *_ptrs(out), n)
+        return ok.reshape(lead), pt.ExtPoint(*(c.reshape(*lead, fe.NLIMBS) for c in out))
+
+
+def encode_bytes(p: pt.ExtPoint) -> torch.Tensor:
+    """Ristretto encode: coords int32 [..., 10] -> canonical uint8 [..., 32]
+    (:func:`point.compress_to_bytes_tensor`)."""
+    if _device_kind(p.x, "encode_bytes") == "cpu":
+        return pt.compress_to_bytes_tensor(p)
+    with span("ops.point.encode"):
+        if any(c.shape != p.x.shape for c in p) or p.x.shape[-1:] != (fe.NLIMBS,):
+            raise ValueError(f"encode_bytes: expected four [..., {fe.NLIMBS}] coordinates, "
+                             f"got {[list(c.shape) for c in p]}")
+        dev, lead = p.device, p.x.shape[:-1]
+        flat = pt.ExtPoint(*(c.reshape(-1, fe.NLIMBS).contiguous() for c in p))
+        n = flat.x.shape[0]
+        _check_point(flat, "p", (n, fe.NLIMBS), dev)
+        out = torch.empty((n, 32), dtype=torch.uint8, device=dev)
+        if n:
+            launch("ristretto_encode", dev, *_ptrs(flat), out.data_ptr(), n)
+        return out.reshape(*lead, 32)
 
 
 def scalar_mul(nibbles: torch.Tensor, p: pt.ExtPoint) -> pt.ExtPoint:

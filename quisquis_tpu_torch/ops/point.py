@@ -392,12 +392,6 @@ def compress(p: ExtPoint) -> torch.Tensor:
 
 
 @span("ops.point.encode")
-def compress_to_bytes(p: ExtPoint) -> np.ndarray:
-    """[..., 32] uint8 wire encodings (only the bytes leave the device)."""
-    return fe.to_bytes(compress(p))
-
-
-@span("ops.point.encode")
 def compress_to_bytes_tensor(p: ExtPoint) -> torch.Tensor:
     """[..., 32] uint8 wire encodings, left on the device."""
     return fe.to_bytes_tensor(compress(p))
@@ -425,20 +419,10 @@ def decompress(s: torch.Tensor):
 
 
 @span("ops.point.decode")
-def decompress_from_bytes(b, device="cuda"):
-    """[..., 32] uint8 -> (ok, ExtPoint); rejects non-canonical encodings."""
-    b = np.asarray(b, dtype=np.uint8)
-    vals = [int.from_bytes(bytes(row), "little") for row in b.reshape(-1, 32)]
-    ok_enc = np.array([v < ex.P for v in vals], dtype=bool).reshape(b.shape[:-1])
-    ok, p = decompress(fe.from_bytes(b, device))
-    return ok & torch.as_tensor(ok_enc, device=ok.device), p
-
-
-@span("ops.point.decode")
 def decompress_bytes_tensor(b: torch.Tensor):
-    """Byte values [..., 32] already on a device -> (ok, ExtPoint) there:
-    :func:`decompress_from_bytes` with the canonical-encoding check in
-    tensor arithmetic, so nothing returns to the host."""
+    """Byte values [..., 32] already on a device -> (ok, ExtPoint) there;
+    rejects non-canonical encodings (value >= p or bit 255 set), in tensor
+    arithmetic, so nothing returns to the host."""
     ok_enc, s = fe.from_bytes_tensor(b)
     ok, p = decompress(s)
     return ok & ok_enc, p

@@ -45,6 +45,7 @@ from ..accounts.prover import Prover as HostProver
 from ..accounts.transcript import Transcript
 from ..bulletproofs.device_verify import _sf_tree_prod, _sf_tree_sum
 from ..device import resolve_device
+from ..ops import cuda_point as kp
 from ..ops import exact as ex
 from ..ops import field as fe
 from ..ops import msm as qmsm
@@ -176,7 +177,7 @@ class DeviceShuffleProver:
     @staticmethod
     def _enc(points: pt.ExtPoint) -> torch.Tensor:
         """Wire encodings, uint8 [..., 32] on the device."""
-        return pt.compress_to_bytes_tensor(points)
+        return kp.encode_bytes(points)
 
     @staticmethod
     def _rekey(drng: DeviceTranscriptRng, arr_bytes: torch.Tensor) -> None:
@@ -213,8 +214,8 @@ class DeviceShuffleProver:
         def challenge(label: bytes) -> torch.Tensor:
             return sf.from_bytes_wide(dt.get_challenge_bytes(label))
 
-        ok_in, in_pts = pt.decompress_bytes_tensor(acc_in)      # [B, 4N]
-        ok_out, o_pts = pt.decompress_bytes_tensor(acc_out)
+        ok_in, in_pts = kp.decode_bytes(acc_in)      # [B, 4N]
+        ok_out, o_pts = kp.decode_bytes(acc_out)
         with span("dev.shuffle_prove.wait"):
             decoded = bool(ok_in.all() & ok_out.all())  # the one fetch before the end
         if not decoded:

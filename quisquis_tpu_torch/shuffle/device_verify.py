@@ -222,7 +222,7 @@ class DeviceShuffleVerifier:
         P = self._point_layout()
         S = self._scalar_layout()
 
-        ok_pts, pts_all = pt.decompress_bytes_tensor(comp)
+        ok_pts, pts_all = kp.decode_bytes(comp)
         lane_ok = ok_pts.all(dim=-1)                # [B]
 
         def pts(name) -> pt.ExtPoint:
@@ -461,7 +461,7 @@ class DeviceShuffleVerifier:
         # point that needs a ristretto encoding is ready before the DDH
         # appends, so one batched compress serves the comparisons and the
         # transcript: [c_E (m) | G_agg | H_agg | g_r | h_r].
-        enc = pt.compress_to_bytes_tensor(cat([c_E, _cols(rows, 0, 4)]))  # [B, m+4, 32]
+        enc = kp.encode_bytes(cat([c_E, _cols(rows, 0, 4)]))  # [B, m+4, 32]
 
         def enc_eq(i: int, wire_bytes: torch.Tensor) -> torch.Tensor:
             # Byte equality with a canonical encoding: the wire is then

@@ -8,7 +8,7 @@ descriptors:
     ("range-prove", n, m, batch)     DeviceRangeProver
     ("shuffle-prove", m, batch)      DeviceShuffleProver
 
-On CUDA, warming a shape does three things: nvcc builds the six kernels
+On CUDA, warming a shape does three things: nvcc builds the kernels
 (``ops/cuda_build.py``, once per hash of the sources, under its file lock),
 the per-shape instance is built and cached with its resident generator
 tables (``get_device_*``), and one batch of zero inputs runs through it,

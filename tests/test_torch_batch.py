@@ -54,7 +54,7 @@ def _nib(xs):
 
 
 def _enc(p):
-    return [bytes(x) for x in pt.compress_to_bytes(p)]
+    return [bytes(x) for x in pt.compress_to_bytes_tensor(p).cpu().numpy()]
 
 
 def _jenc(p):

@@ -1,12 +1,13 @@
 """The CUDA sources' arithmetic, compiled for the host with g++.
 
-``field25519.cuh``, ``point25519.cuh`` and the per-lane bodies of
-``scalar_mul.cu``, ``base_mul.cu``, the three MSM kernels and the Keccak
-permutation build as plain C++ (their CUDA-only parts sit behind
-``#ifdef __CUDACC__``). A small C harness exposes them
-through ctypes; each result must equal the port's ``exact.py`` at the
-canonical value and the plain torch version limb for limb. The kernels
-themselves run only on the GPU (``chip_smoke.py``).
+``field25519.cuh``, ``point25519.cuh``, ``ristretto25519.cuh`` and the
+per-lane bodies of ``scalar_mul.cu``, ``base_mul.cu``, the three MSM
+kernels, the Keccak permutation and the ristretto codec build as plain
+C++ (their CUDA-only parts sit behind ``#ifdef __CUDACC__``). A small C
+harness exposes them through ctypes; each result must equal the port's
+``exact.py`` at the canonical value and the plain torch version limb for
+limb (the codec also the JAX package's). The kernels themselves run only
+on the GPU (``chip_smoke.py``).
 """
 
 import ctypes
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from quisquis_tpu.ops import point as jpt
 from quisquis_tpu_torch.ops import cuda_point as kp
 from quisquis_tpu_torch.ops import device_keccak as dk
 from quisquis_tpu_torch.ops import exact as ex
@@ -41,6 +43,7 @@ HARNESS = r"""
 #include "msm_acc.cu"
 #include "msm_tail.cu"
 #include "keccak_f1600.cu"
+#include "ristretto_codec.cu"
 
 using namespace qq;
 
@@ -156,6 +159,18 @@ void h_signed_radix16(const int32_t* nib, int8_t* out, int n) {
 
 int h_msm_lanes() { return MSM_LANES; }
 
+// the codec kernels' lanes: b uint8 [n, 32] -> ok uint8 [n], coordinates
+// int32 [n, 10] each; and back to uint8 [n, 32]
+void h_ristretto_decode(const uint8_t* b, uint8_t* ok, int32_t* x, int32_t* y, int32_t* z,
+                        int32_t* t, int n) {
+  for (long i = 0; i < n; ++i) ristretto_decode_lane(b, ok, x, y, z, t, i);
+}
+
+void h_ristretto_encode(const int32_t* x, const int32_t* y, const int32_t* z, const int32_t* t,
+                        uint8_t* out, int n) {
+  for (long i = 0; i < n; ++i) ristretto_encode_lane(x, y, z, t, out, i);
+}
+
 // states uint8 [n, 200], little-endian lanes (this harness runs on x86);
 // split 1: the kernel's round with its 25 lanes run in turn, 0: the
 // one-thread reference
@@ -216,8 +231,11 @@ def lib():
     lib.h_quad.argtypes = [ci, vp, vp, vp, ci]
     lib.h_signed_radix16.argtypes = [vp, vp, ci]
     lib.h_keccak.argtypes = [vp, vp, ci, ci]
+    lib.h_ristretto_decode.argtypes = [vp] * 6 + [ci]
+    lib.h_ristretto_encode.argtypes = [vp] * 5 + [ci]
     for fn in (lib.h_fe, lib.h_ge, lib.h_base_mul, lib.h_msm_table, lib.h_msm_acc,
-               lib.h_msm_tail, lib.h_quad, lib.h_signed_radix16, lib.h_keccak):
+               lib.h_msm_tail, lib.h_quad, lib.h_signed_radix16, lib.h_keccak,
+               lib.h_ristretto_decode, lib.h_ristretto_encode):
         fn.restype = None
     lib.h_msm_lanes.restype = ci
     return lib
@@ -231,7 +249,7 @@ def test_each_source_compiles_alone():
     if cxx is None:
         pytest.skip("g++ is not installed")
     sources = sorted(f for f in os.listdir(CSRC) if f.endswith(".cu"))
-    assert set(sources) >= {"scalar_mul.cu", "msm_tail.cu"}
+    assert set(sources) >= {"scalar_mul.cu", "msm_tail.cu", "ristretto_codec.cu"}
     procs = [(f, subprocess.Popen([cxx, "-std=c++17", "-fsyntax-only", "-x", "c++",
                                    os.path.join(CSRC, f)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -382,7 +400,7 @@ def test_base_mul_lane(lib):
     table = np.ascontiguousarray(pt.niels_base_table_np())
     out = np.zeros((len(scalars), 4, fe.NLIMBS), dtype=np.int32)
     lib.h_base_mul(_ptr(table), _ptr(nib), _ptr(out), len(scalars))
-    enc = pt.compress_to_bytes(_ext(out))
+    enc = pt.compress_to_bytes_tensor(_ext(out)).numpy()
     for row, s in zip(enc, scalars):
         assert bytes(row) == ex.ristretto_encode(ex.pt_base_mul(s % ex.L))
     plain = pt.base_mul(torch.as_tensor(nib))
@@ -505,3 +523,167 @@ def test_msm_table_parts_equal_plain(lib):
         torch.as_tensor(c.transpose(2, 0, 1).reshape(n * 16, fe.NLIMBS).copy()) for c in table)))
     assert all(ex.pt_same(got[i * 16 + k], ex.pt_mul_int(k, q))
                for i, q in enumerate(points) for k in range(16))
+
+
+#: RFC 9496 appendix A.2: encodings every decoder must reject
+RFC9496_INVALID = {
+    "non-canonical": [
+        "00ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff",
+        "ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+        "f3ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+        "edffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    ],
+    "negative s": [
+        "0100000000000000000000000000000000000000000000000000000000000000",
+        "01ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+        "ed57ffd8c914fb201471d1c3d245ce3c746fcbe63a3679d51b6a516ebebe0e20",
+        "c34c4e1826e5d403b78e246e88aa051c36ccf0aafebffe137d148a2bf9104562",
+        "c940e5a4404157cfb1628b108db051a8d439e1a421394ec4ebccb9ec92a8ac78",
+        "47cfc5497c53dc8e61c91d17fd626ffb1c49e2bca94eed052281b510b1117a24",
+        "f1c6165d33367351b0da8f6e4511010c68174a03b6581212c71c0e1d026c3c72",
+        "87260f7a2f12495118360f02c26a470f450dadf34a413d21042b43b9d93e1309",
+    ],
+    "non-square": [
+        "26948d35ca62e643e26a83177332e6b6afeb9d08e4268b650f1f5bbd8d81d371",
+        "4eac077a713c57b4f4397629a4145982c661f48044dd3f96427d40b147d9742f",
+        "de6a7b00deadc788eb6b6c8d20c0ae96c2f2019078fa604fee5b87d6e989ad7b",
+        "bcab477be20861e01e4a0e295284146a510150d9817763caf1a6f4b422d67042",
+        "2a292df7e32cababbd9de088d1d1abec9fc0440f637ed2fba145094dc14bea08",
+        "f4a9e534fc0d216c44b218fa0c42d99635a0127ee2e53c712f70609649fdff22",
+        "8268436f8c4126196cf64b3c7ddbda90746a378625f9813dd9b8457077256731",
+        "2810e5cbc2cc4d4eece54f61c6f69758e289aa7ab440b3cbeaa21995c2f4232b",
+    ],
+    "negative t": [
+        "3eb858e78f5a7254d8c9731174a94f76755fd3941c0ac93735c07ba14579630e",
+        "a45fdc55c76448c049a1ab33f17023edfb2be3581e9c7aade8a6125215e04220",
+        "d483fe813c6ba647ebbfd3ec41adca1c6130c2beeee9d9bf065c8d151c5f396e",
+        "8a2e1d30050198c65a54483123960ccc38aef6848e1ec8f5f780e8523769ba32",
+        "32888462f8b486c68ad7dd9610be5192bbeaf3b443951ac1a8118419d9fa097b",
+        "227142501b9d4355ccba290404bde41575b037693cef1f438c47f8fbf35d1165",
+        "5c37cc491da847cfeb9281d407efc41e15144c876e0170b499a96a22ed31e01e",
+        "445425117cb8c90edcbc7c1cc0e74f747f2c1efa5630a967c64f287792a48a4b",
+    ],
+    "y = 0": ["ecffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f"],
+}
+
+
+def _codec_inputs(kind: str):
+    """(encodings uint8 [n, 32], points [n] or None): the points where the
+    inputs are encodings of known points."""
+    r = random.Random(kind)
+    if kind == "random points":
+        points = [ex.pt_base_mul(r.randrange(1, ex.L)) for _ in range(24)]
+        t4 = ex.pt_double(ex.eight_torsion())
+        points.append(ex.pt_add(points[0], t4))  # the same coset as points[0]
+    elif kind == "identity":
+        # the identity's coset: the identity and the points of order 2 and 4
+        t4 = ex.pt_double(ex.eight_torsion())
+        points = [ex.IDENTITY, ex.pt_double(t4), t4, ex.pt_neg(t4)]
+    else:
+        points = None
+    if points is not None:
+        enc = [ex.ristretto_encode(p) for p in points]
+    elif kind == "RFC 9496 invalid":
+        enc = [bytes.fromhex(h) for hs in RFC9496_INVALID.values() for h in hs]
+    elif kind == "high bit set":
+        # valid encodings with bit 255 set, and p + 1 .. 2^256 - 1 edges
+        enc = [bytearray(ex.ristretto_encode(ex.pt_base_mul(r.randrange(1, ex.L))))
+               for _ in range(8)]
+        for e in enc:
+            e[31] |= 0x80
+        enc = [bytes(e) for e in enc] + [(P + k).to_bytes(32, "little") for k in (0, 1, 2)] \
+            + [(2**256 - 1).to_bytes(32, "little"), (2**255).to_bytes(32, "little")]
+    else:  # random 32-byte strings
+        enc = [r.randbytes(32) for _ in range(64)]
+    return np.frombuffer(b"".join(enc), np.uint8).reshape(-1, 32).copy(), points
+
+
+def _host_decode(lib, enc: np.ndarray):
+    n = enc.shape[0]
+    ok = np.full(n, 7, dtype=np.uint8)
+    coords = [np.full((n, fe.NLIMBS), -1, dtype=np.int32) for _ in range(4)]
+    lib.h_ristretto_decode(_ptr(enc), _ptr(ok), *map(_ptr, coords), n)
+    return ok, coords
+
+
+def _host_encode(lib, p: pt.ExtPoint) -> np.ndarray:
+    coords = _coords_np(p)
+    out = np.zeros((coords[0].shape[0], 32), dtype=np.uint8)
+    lib.h_ristretto_encode(*map(_ptr, coords), _ptr(out), coords[0].shape[0])
+    return out
+
+
+@pytest.mark.parametrize("kind", ["random points", "identity", "RFC 9496 invalid",
+                                  "high bit set", "random bytes"])
+def test_ristretto_codec_lanes(lib, kind):
+    """ristretto_codec.cu's lanes against the plain decompress_bytes_tensor
+    and compress_to_bytes_tensor (limb for limb, ok included and rejected
+    encodings too; byte for byte) and against exact.py's codec."""
+    enc, points = _codec_inputs(kind)
+    ok, coords = _host_decode(lib, enc)
+    plain_ok, plain = pt.decompress_bytes_tensor(torch.as_tensor(enc))
+    assert set(ok.tolist()) <= {0, 1}
+    assert np.array_equal(ok.astype(bool), plain_ok.numpy())
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(coords, plain))
+    want = [ex.ristretto_decode(bytes(row)) for row in enc]
+    assert ok.tolist() == [int(w is not None) for w in want]
+    if kind == "RFC 9496 invalid":
+        assert not ok.any()
+    if points is not None:
+        assert ok.all()
+    decoded = pt.ExtPoint(*(torch.as_tensor(c) for c in coords))
+    # encode what was decoded (garbage limbs under a rejected ok too: the
+    # same operations give the same bytes), then points in other
+    # representatives: from the base-point multiplication, Z != 1
+    out = _host_encode(lib, decoded)
+    assert np.array_equal(out, pt.compress_to_bytes_tensor(decoded).numpy())
+    for row, w, e in zip(out, want, enc):
+        if w is not None:
+            assert bytes(row) == ex.ristretto_encode(w) == bytes(e)
+    if points is not None:
+        projective = pt.from_exact_batch([ex.pt_add(ex.pt_double(p), ex.pt_neg(p))
+                                          for p in points], "cpu")
+        out = _host_encode(lib, projective)
+        assert np.array_equal(out, pt.compress_to_bytes_tensor(projective).numpy())
+        assert [bytes(row) for row in out] == [ex.ristretto_encode(p) for p in points]
+
+
+@pytest.mark.parametrize("kind", ["random points", "identity", "RFC 9496 invalid",
+                                  "high bit set", "random bytes"])
+def test_ristretto_codec_lanes_equal_the_jax_package(lib, kind):
+    """ristretto_codec.cu's lanes against the JAX package's
+    decompress_from_bytes and compress_to_bytes on the same inputs: ok for
+    ok, the same field values in every decoded row (rejected rows too),
+    and byte for byte the same encodings of what each decoded and of the
+    known points in other representatives."""
+    enc, points = _codec_inputs(kind)
+    ok, coords = _host_decode(lib, enc)
+    j_ok, j_pts = jpt.decompress_from_bytes(enc)
+    assert np.array_equal(ok.astype(bool), np.asarray(j_ok))
+    decoded = pt.ExtPoint(*(torch.as_tensor(c) for c in coords))
+    assert pt.to_exact_batch(decoded) == jpt.to_exact_batch(j_pts)
+    assert np.array_equal(_host_encode(lib, decoded), np.asarray(jpt.compress_to_bytes(j_pts)))
+    if points is not None:
+        others = [ex.pt_add(ex.pt_double(p), ex.pt_neg(p)) for p in points]
+        out = _host_encode(lib, pt.from_exact_batch(others, "cpu"))
+        assert np.array_equal(out, np.asarray(jpt.compress_to_bytes(jpt.from_exact_batch(others))))
+
+
+def test_codec_wrappers_take_the_plain_path_on_the_cpu():
+    """decode_bytes and encode_bytes on CPU tensors: the plain versions,
+    leading batch dimensions kept, no launch counted, and the codec spans
+    under the names that the benchmark's ``dev.codec_ms.*`` reads."""
+    from quisquis_tpu_torch.utils.metrics import metrics
+
+    enc, _ = _codec_inputs("random bytes")
+    b = torch.as_tensor(enc).reshape(4, 16, 32)
+    before = dict(kp.LAUNCHES)
+    spans = {name: len(metrics.timers[name]) for name in ("ops.point.decode", "ops.point.encode")}
+    ok, p = kp.decode_bytes(b)
+    want_ok, want = pt.decompress_bytes_tensor(b)
+    assert ok.shape == (4, 16) and torch.equal(ok, want_ok)
+    assert all(torch.equal(a, w) for a, w in zip(p, want))
+    out = kp.encode_bytes(p)
+    assert out.shape == (4, 16, 32) and torch.equal(out, pt.compress_to_bytes_tensor(p))
+    assert kp.LAUNCHES == before
+    assert all(len(metrics.timers[name]) > n for name, n in spans.items())

@@ -7,9 +7,11 @@ test configuration:
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
+from chip_smoke import codec_inputs
 from quisquis_tpu_torch.ops import cuda_keccak as kk
 from quisquis_tpu_torch.ops import cuda_point as kp
 from quisquis_tpu_torch.ops import device_keccak as dk
@@ -130,6 +132,71 @@ def _rows_mode_case(dev, k):
         kp.msm_window_sums(digits[:, :-1].contiguous(), table, rows)
     with pytest.raises(ValueError):
         kp.msm_tail(pt.ExtPoint(*(c[..., :64].contiguous() for c in sums)))
+
+
+def _same_decode(a, b):
+    return torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+@pytest.mark.parametrize("shape", [(32, 149), (32, 20), (32, 7), (160,), (32,)])
+def test_codec_equals_plain(dev, shape):
+    """decode_bytes and encode_bytes at the benchmark cells' codec shapes
+    (a block's shuffle and range verifiers, the shuffle verifier's
+    encodings; a build's range prover): ok for ok and limb for limb,
+    rejected encodings included, and byte for byte; one launch a call."""
+    enc, points = codec_inputs(dev, shape, int(np.prod(shape)))
+    before = dict(kp.LAUNCHES)
+    got = kp.decode_bytes(enc)
+    assert kp.LAUNCHES == {k: v + (k == "ristretto_decode") for k, v in before.items()}
+    assert _same_decode(got, pt.decompress_bytes_tensor(enc))
+    ok = got[0].reshape(-1).cpu()
+    assert ok[0::2].all() and not (ok[3::8].any() or ok[5::8].any())
+    before = dict(kp.LAUNCHES)
+    out = kp.encode_bytes(points)
+    assert kp.LAUNCHES == {k: v + (k == "ristretto_encode") for k, v in before.items()}
+    assert out.shape == (*shape, 32) and torch.equal(out, pt.compress_to_bytes_tensor(points))
+    assert torch.equal(out.reshape(-1, 32)[0::2], enc.reshape(-1, 32)[0::2])
+    # the garbage limbs of rejected rows encode as the plain version's do
+    assert torch.equal(kp.encode_bytes(got[1]), pt.compress_to_bytes_tensor(got[1]))
+
+
+def test_codec_wrappers(dev):
+    """Leading batch dimensions, n = 0 (no launch), a non-contiguous input
+    (a column slice, as the verifiers pass), a CPU tensor on the plain path
+    (no launch), and inputs the kernels do not take."""
+    enc, points = codec_inputs(dev, (30,), 7)
+    cube = enc.reshape(2, 3, 5, 32)
+    ok, p = kp.decode_bytes(cube)
+    assert ok.shape == (2, 3, 5) and p.x.shape == (2, 3, 5, fe.NLIMBS)
+    assert _same_decode((ok, p), pt.decompress_bytes_tensor(cube))
+    assert torch.equal(kp.encode_bytes(p), pt.compress_to_bytes_tensor(p))
+    cols = enc.reshape(5, 6, 32)[:, 1:4]
+    assert not cols.is_contiguous()
+    assert _same_decode(kp.decode_bytes(cols), pt.decompress_bytes_tensor(cols.contiguous()))
+    strided = pt.ExtPoint(*(c.reshape(5, 6, fe.NLIMBS)[:, ::2] for c in points))
+    assert torch.equal(kp.encode_bytes(strided),
+                       pt.compress_to_bytes_tensor(pt.ExtPoint(*(c.contiguous()
+                                                                 for c in strided))))
+    before = dict(kp.LAUNCHES)
+    for empty in (enc[:0], enc.reshape(5, 6, 32)[:, :0]):
+        e_ok, e_p = kp.decode_bytes(empty)
+        assert e_ok.shape == empty.shape[:-1] and e_p.x.shape == (*empty.shape[:-1], fe.NLIMBS)
+        assert kp.encode_bytes(e_p).shape == empty.shape
+    on_cpu = kp.decode_bytes(cube.cpu())
+    p_cpu = pt.ExtPoint(*(c.cpu() for c in p))
+    assert on_cpu[0].device.type == "cpu" and _same_decode(on_cpu, (ok.cpu(), p_cpu))
+    assert torch.equal(kp.encode_bytes(p_cpu), pt.compress_to_bytes_tensor(p_cpu))
+    assert kp.LAUNCHES == before
+    with pytest.raises(TypeError):
+        kp.decode_bytes(enc.int())
+    with pytest.raises(ValueError):
+        kp.decode_bytes(enc[:, :31])
+    with pytest.raises(TypeError):
+        kp.encode_bytes(pt.ExtPoint(*(c.long() for c in points)))
+    with pytest.raises(ValueError):
+        kp.encode_bytes(pt.ExtPoint(points.x[:3], *points[1:]))
+    with pytest.raises(ValueError):
+        kp.encode_bytes(pt.ExtPoint(points.x, points.y.cpu(), points.z, points.t))
 
 
 @pytest.mark.parametrize("n", [1, 2, 64, 1000, 1024, 4097])
@@ -346,7 +413,8 @@ def test_shared_rows_equal_plain(dev, rows, k):
     cpu_basis = kp.SharedBasis(pt.ExtPoint(*(c.cpu() for c in basis.points)))
     if rows * k <= 1000:
         want = kp.msm_shared_rows(nib.cpu(), cpu_basis)
-        assert (pt.compress_to_bytes(got) == pt.compress_to_bytes(want)).all()
+        assert torch.equal(pt.compress_to_bytes_tensor(got).cpu(),
+                           pt.compress_to_bytes_tensor(want))
     table = basis.table()
     kpad = table.x.shape[-1]
     digits = torch.cat([nib, nib.new_zeros((rows, kpad - k, 64))], 1).reshape(-1, 64).t()
@@ -371,7 +439,8 @@ def test_shared_rows_equal_plain(dev, rows, k):
     host_pts = pt.to_exact_batch(basis.points)
     for r in (0, rows - 1):
         s = [sum(int(d) << (4 * w) for w, d in enumerate(row)) for row in nib[r].tolist()]
-        assert bytes(pt.compress_to_bytes(got)[r]) == ex.ristretto_encode(ex.pt_msm(s, host_pts))
+        enc = pt.compress_to_bytes_tensor(got)[r].cpu().numpy()
+        assert bytes(enc) == ex.ristretto_encode(ex.pt_msm(s, host_pts))
 
 
 def test_batch_create_transactions_equals_the_host_loop(dev):

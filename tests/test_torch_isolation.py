@@ -181,7 +181,6 @@ def _constructors():
         "pt.basepoint": lambda **kw: pt.basepoint((1,), **kw),
         "pt.from_exact": lambda **kw: pt.from_exact(ex.BASEPOINT, (1,), **kw),
         "pt.from_exact_batch": lambda **kw: pt.from_exact_batch([ex.BASEPOINT], **kw),
-        "pt.decompress_from_bytes": lambda **kw: pt.decompress_from_bytes(b32, **kw)[1],
         "pt.from_uniform_bytes": lambda **kw: pt.from_uniform_bytes(b64, **kw),
         "sf.zeros": lambda **kw: sf.zeros((1,), **kw),
         "sf.one": lambda **kw: sf.one((1,), **kw),

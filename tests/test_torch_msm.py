@@ -45,7 +45,7 @@ def _inputs(tag: bytes, rows: int, k: int):
 
 
 def _encodings(p: pt.ExtPoint):
-    return [bytes(r) for r in pt.compress_to_bytes(p).reshape(-1, 32)]
+    return [bytes(r) for r in pt.compress_to_bytes_tensor(p).cpu().numpy().reshape(-1, 32)]
 
 
 def _recording(monkeypatch, module, name):

@@ -39,7 +39,7 @@ def assert_pt_eq(p: pt.ExtPoint, expected):
 
 
 def encodings(p: pt.ExtPoint):
-    return [bytes(r) for r in pt.compress_to_bytes(p)]
+    return [bytes(r) for r in pt.compress_to_bytes_tensor(p).numpy()]
 
 
 def jax_encodings(p: jpt.ExtPoint):
@@ -136,14 +136,14 @@ def test_compress_decompress():
     assert encodings(tp) == [ex.ristretto_encode(p) for p in ps]
     assert encodings(pt.identity((2,), device="cpu"))[0] == b"\x00" * 32
     encs = np.stack([np.frombuffer(ex.ristretto_encode(p), dtype=np.uint8) for p in ps])
-    ok, dp = pt.decompress_from_bytes(encs, device="cpu")
+    ok, dp = pt.decompress_bytes_tensor(torch.as_tensor(encs))
     assert bool(torch.all(ok))
     assert_pt_eq(dp, ps)
     bad = encs.copy()
     bad[0] = 0
     bad[0, 0] = 1  # field element 1: 1-ss=0 -> y=0 -> reject
     bad[1, 31] |= 0x80  # high bit set: non-canonical
-    ok2, _ = pt.decompress_from_bytes(bad, device="cpu")
+    ok2, _ = pt.decompress_bytes_tensor(torch.as_tensor(bad))
     assert ok2.tolist() == [False, False] + [True] * (B - 2)
 
 
