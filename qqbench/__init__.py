@@ -4,6 +4,6 @@ One command runs one cell of ``BENCHMARK.json`` once::
 
     python3 qqbench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-See README.md for the layout and how to add a configuration, a traffic mix
-or a per-layer metric as files.
+See README.md for the layout and how to add a configuration, a traffic mix,
+an entry or a per-layer metric as files.
 """

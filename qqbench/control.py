@@ -14,6 +14,11 @@ of the configuration broken, to show that the comparison that decides
   enters the transcript through the commitments recomputed from it, so a
   tampered one moves every later challenge and the range and shuffle
   checks reject it; ``tests/test_qqbench_harness.py`` shows it.)
+- shuffle cells, ``no-point-checks``: the reference shuffle verifier
+  without its batched point checks (every multi-exponentiation, product and
+  Hadamard identity rides them); the transcript and the scalar checks
+  (the product's and the DDH challenge) still run. It breaks the shuffle
+  soundness that the configuration states.
 - build cells, ``range-32``: the reference builder with 32-bit range
   proofs in place of the configuration's 64 bits, the step that would
   tempt a faster prover.
@@ -36,22 +41,20 @@ from pathlib import Path
 if __package__ in (None, ""):   # run as a script: the checkout's root on the path
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from qqbench.entries import Build, VerifyWire  # noqa: E402
+from qqbench.entries import Build, VerifyShuffleWire, VerifyWire  # noqa: E402
 
 
-class _SigmaOnlyVerifier:
-    """verify_wire of the reference without the batched point checks."""
+class _RefVerifier:
+    """``verify_wire`` on a reference verdict: every item judged by
+    ``verdict(item)``; a group with a rejected item raises ValueError."""
 
-    def verify_wire(self, pairs) -> int:
-        from qqbench.ref.accounts.deferred import DeferredPointChecks
-        from qqbench.ref.transaction.transaction import verify_transaction
-        from qqbench.ref.utils import serde
+    def __init__(self, verdict):
+        self.verdict = verdict
 
-        for txb, pfb in pairs:
-            tx, proof = serde.transaction_from_bytes(txb), serde.transaction_proof_from_bytes(pfb)
-            verify_transaction(tx, proof, defer=DeferredPointChecks(b"\0" * 32))
-            # the accumulator's MSM (every shuffle and range identity) is never evaluated
-        return len(pairs)
+    def verify_wire(self, items) -> int:
+        if not all(self.verdict(item) for item in items):
+            raise ValueError("rejected")
+        return len(items)
 
     def close(self) -> None:
         pass
@@ -62,37 +65,40 @@ SIGMA_CHECKS = ("verify_delta_compact_verifier", "verify_update_account_verifier
                 "zero_balance_account_vector_verifier", "verify_account_verifier_bulletproof")
 
 
-class _NoSigmaVerifier:
-    """verify_wire of the reference with its sigma verifiers skipped: they
-    do nothing, so neither their checks nor their transcript steps run."""
+def _no_sigma_verdict(pair) -> bool:
+    """The reference's verdict with its sigma verifiers skipped: they do
+    nothing, so neither their checks nor their transcript steps run."""
+    from qqbench.gen import ref_verify
+    from qqbench.ref.accounts.verifier import Verifier
 
-    def verify_wire(self, pairs) -> int:
-        from qqbench.gen import ref_verify
-        from qqbench.ref.accounts.verifier import Verifier
-
-        saved = {name: getattr(Verifier, name) for name in SIGMA_CHECKS}
-        try:
-            for name in SIGMA_CHECKS:
-                setattr(Verifier, name, staticmethod(lambda *a, **k: None))
-            if not all(ref_verify(pair, bytes(32)) for pair in pairs):
-                raise ValueError("rejected")
-        finally:
-            for name, fn in saved.items():
-                setattr(Verifier, name, staticmethod(fn))
-        return len(pairs)
-
-    def close(self) -> None:
-        pass
+    saved = {name: getattr(Verifier, name) for name in SIGMA_CHECKS}
+    try:
+        for name in SIGMA_CHECKS:
+            setattr(Verifier, name, staticmethod(lambda *a, **k: None))
+        return ref_verify(pair, bytes(32))
+    finally:
+        for name, fn in saved.items():
+            setattr(Verifier, name, staticmethod(fn))
 
 
 class ControlVerify(VerifyWire):
     def service(self, device: str):
-        return _SigmaOnlyVerifier()
+        from qqbench.gen import ref_verify
+
+        return _RefVerifier(lambda pair: ref_verify(pair, bytes(32), point_checks=False))
 
 
 class ControlNoSigma(VerifyWire):
     def service(self, device: str):
-        return _NoSigmaVerifier()
+        return _RefVerifier(_no_sigma_verdict)
+
+
+class ControlShuffle(VerifyShuffleWire):
+    def service(self, device: str):
+        from qqbench.entries.verify_shuffle_wire import ref_verify
+
+        return _RefVerifier(lambda blob: ref_verify(blob, self.config, bytes(32),
+                                                    point_checks=False))
 
 
 class ControlBuild(Build):
@@ -121,20 +127,20 @@ class ControlBuild(Build):
         self.create = create
 
 
-#: control name -> (the kind of cell it stands in for, its entry)
-CONTROLS = {"no-point-checks": ("verify", ControlVerify),
-            "no-sigma-checks": ("verify", ControlNoSigma),
-            "range-32": ("build", ControlBuild)}
+#: control name -> {the kind of cell it stands in for: its entry}
+CONTROLS = {"no-point-checks": {"verify": ControlVerify, "shuffle": ControlShuffle},
+            "no-sigma-checks": {"verify": ControlNoSigma},
+            "range-32": {"build": ControlBuild}}
 
 
 def control_factory(name: str):
     """The entry factory of run_cell that puts control `name` in the
     program's place."""
     def factory(entry_cls, config, mix, inputs, seed):
-        kind, cls = CONTROLS[name]
-        if kind != entry_cls.kind:
-            raise ValueError(f"control {name!r} is for {kind} cells, not {entry_cls.kind}")
-        return cls(config, mix, inputs, seed, "cpu")
+        if entry_cls.kind not in CONTROLS[name]:
+            raise ValueError(f"control {name!r} is for {sorted(CONTROLS[name])} cells, "
+                             f"not {entry_cls.kind}")
+        return CONTROLS[name][entry_cls.kind](config, mix, inputs, seed, "cpu")
     return factory
 
 

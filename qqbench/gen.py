@@ -1,23 +1,31 @@
 """The benchmark's input generator: everything a cell sends, made from the
 seed with the frozen reference (``qqbench.ref``), never by the program.
 
-Two kinds of traffic, chosen by the mix file's ``entry``:
+Each entry (``qqbench/entries/<name>.py``) owns its inputs; this module holds
+what they share (the pool of reference processes, the cache and
+``seed_tag``) and the transaction traffic of the two transaction entries:
 
-- ``verify_wire``: ``transactions`` wire transactions of the configuration
-  (``benchmark_requests``' streams, built by the reference's host
-  ``create_transaction``), and for one transaction, picked by the seed, one
-  tampered copy for each kind in the mix's ``tampered`` list. The
-  reference's verdict on every transaction and every tampered copy is part
-  of the inputs.
-- ``build``: ``request_sets`` sets of ``requests_per_call`` build requests
-  in a wire form (accounts by their bytes, secret keys by their scalar, the
-  rng by its seed), which both the program and the reference turn into
-  their own objects.
+- ``verify_wire`` (:func:`verify_inputs`): ``transactions`` wire
+  transactions of the configuration (``benchmark_requests``' streams,
+  built by the reference's host ``create_transaction``), and for one
+  transaction, picked by the seed, one tampered copy for each kind in the
+  mix's ``tampered`` list. The reference's verdict on every transaction
+  and every tampered copy is part of the inputs.
+- ``build`` (:func:`build_inputs`): ``request_sets`` sets of
+  ``requests_per_call`` build requests in a wire form (accounts by their
+  bytes, secret keys by their scalar, the rng by its seed), which both the
+  program and the reference turn into their own objects.
 
 Inputs are cached in ``.qqbench_cache/inputs/``, keyed by configuration,
-mix parameters, seed and the hash of the generator's sources (this file and
-``qqbench/ref/``), so a cell's first run with a seed pays for them and the
-runs after it read them back.
+mix parameters, seed and the hash of the generator's sources (this file,
+``qqbench/ref/`` and the file of the entry whose generator made them), so a
+cell's first run with a seed pays for them and the runs after it read them
+back.
+
+:func:`checked_inputs` is the one generator of verify entries: items made
+and judged by the reference in the pool, one seeded item's tampered copies,
+and the reference's verdicts, refused where it rejects an honest item or
+accepts a tampered one.
 """
 
 from __future__ import annotations
@@ -39,11 +47,12 @@ POOL_WORKERS = max(1, min(8, os.cpu_count() or 1))
 TAMPER_KINDS = ("range_proof_ipp_a", "output_shuffle_E_k_0", "sigma_delta_dleq_zv_0")
 
 
-def generator_hash() -> str:
-    """sha256 over the generator's and the reference's sources."""
+def generator_hash(owner: Path = None) -> str:
+    """sha256 over the generator's and the reference's sources, and the
+    file `owner` (an entry that makes its own inputs) where given."""
     h = hashlib.sha256()
-    files = [PKG / "gen.py"] + sorted(p for p in (PKG / "ref").rglob("*")
-                                      if p.suffix in (".py", ".cpp"))
+    files = ([PKG / "gen.py"] + ([Path(owner)] if owner is not None else [])
+             + sorted(p for p in (PKG / "ref").rglob("*") if p.suffix in (".py", ".cpp")))
     for p in files:
         h.update(str(p.relative_to(PKG)).encode() + b"\0" + p.read_bytes())
     return h.hexdigest()[:16]
@@ -115,9 +124,11 @@ def ref_build(wire: dict) -> tuple:
     return serde.transaction_to_bytes(tx), serde.transaction_proof_to_bytes(proof)
 
 
-def ref_verify(pair: tuple, weight_seed: bytes) -> bool:
+def ref_verify(pair: tuple, weight_seed: bytes, point_checks: bool = True) -> bool:
     """The reference's verdict on one wire transaction: True where it
-    verifies, False where it is malformed or a check fails."""
+    verifies, False where it is malformed or a check fails. With
+    `point_checks` False the batched point checks (every shuffle and
+    range-proof identity) are never evaluated: the controls' verdict."""
     from .ref.accounts.deferred import DeferredPointChecks
     from .ref.transaction.transaction import verify_transaction
     from .ref.utils import serde
@@ -127,7 +138,8 @@ def ref_verify(pair: tuple, weight_seed: bytes) -> bool:
         proof = serde.transaction_proof_from_bytes(pair[1])
         defer = DeferredPointChecks(weight_seed)
         verify_transaction(tx, proof, defer=defer)
-        defer.verify()
+        if point_checks:
+            defer.verify()
     except ValueError:
         return False
     return True
@@ -181,12 +193,15 @@ def tamper(pair: tuple, kind: str) -> tuple:
 
 # ------------------------------------------------------------------ inputs
 
-def _cache_path(kind: str, config: dict, key: dict, seed: int) -> Path:
+def cache_path(kind: str, config: dict, key: dict, seed: int, owner: Path = None) -> Path:
+    """Where the inputs of one kind, configuration, mix key and seed are
+    cached, under the hash of the generator and of `owner`."""
     h = hashlib.sha256(json.dumps([config, key], sort_keys=True).encode()).hexdigest()[:12]
-    return cache_dir() / "inputs" / config["name"] / f"{kind}-{h}-{generator_hash()}-{int(seed)}.pkl"
+    return (cache_dir() / "inputs" / config["name"]
+            / f"{kind}-{h}-{generator_hash(owner)}-{int(seed)}.pkl")
 
 
-def _cached(path: Path, make):
+def cached(path: Path, make):
     """(data, seconds spent making it): read from `path`, or made by
     `make()` and written there."""
     if path.exists():
@@ -202,36 +217,49 @@ def _cached(path: Path, make):
     return data, time.perf_counter() - t
 
 
-def verify_inputs(config: dict, mix: dict, seed: int, workers: int = POOL_WORKERS):
-    """({"pairs": [(tx, proof)] * n, "tampered_index": t, "tampered":
-    {kind: pair}, "verdicts": [bool] * n, "tampered_verdicts": {kind:
-    bool}}, seconds spent making them) for a verify mix, from the cache or
-    made now."""
-    n_tx, kinds = int(mix["transactions"]), list(mix["tampered"])
-    key = {"n": n_tx, "tampered": kinds}
+def checked_inputs(what: str, config: dict, seed: int, n: int, kinds: list, members: str,
+                   worker, tamper, verify, owner: Path = None, workers: int = POOL_WORKERS):
+    """({members: [item] * n, "verdicts": [bool] * n, "tampered_index": t,
+    "tampered": {kind: item}, "tampered_verdicts": {kind: bool}}, seconds
+    spent making them), from the cache or made now.
+
+    The items come from ``worker(tag, config, n, indices) -> [(i, item,
+    the reference's verdict)]`` in the pool, on the tag ``seed_tag(config,
+    seed, what)``; item t, picked by the tag, is changed by ``tamper(item,
+    kind)`` for each kind, and ``verify(item, weight_seed)`` judges each
+    copy. Inputs in which the reference rejects an honest item or accepts a
+    tampered one are refused."""
+    key = {"n": n, "tampered": list(kinds)}
 
     def make():
-        tag = seed_tag(config, seed, "verify")
-        chunks = [list(range(i, n_tx, workers)) for i in range(min(workers, n_tx))]
+        tag = seed_tag(config, seed, what)
+        chunks = [list(range(i, n, workers)) for i in range(min(workers, n))]
         with pool(workers) as p:
-            parts = list(p.map(_build_and_verify, [tag] * len(chunks), [config] * len(chunks),
-                               [n_tx] * len(chunks), chunks))
-        pairs, verdicts = [None] * n_tx, [None] * n_tx
+            parts = list(p.map(worker, [tag] * len(chunks), [config] * len(chunks),
+                               [n] * len(chunks), chunks))
+        items, verdicts = [None] * n, [None] * n
         for part in parts:
-            for i, pair, ok in part:
-                pairs[i], verdicts[i] = pair, ok
-        t = random.Random(tag).randrange(n_tx)
-        tampered = {k: tamper(pairs[t], k) for k in kinds}
-        tv = {k: ref_verify(p, hashlib.sha256(tag + k.encode()).digest())
-              for k, p in tampered.items()}
-        return {"pairs": pairs, "verdicts": verdicts, "tampered_index": t,
+            for i, item, ok in part:
+                items[i], verdicts[i] = item, ok
+        t = random.Random(tag).randrange(n)
+        tampered = {k: tamper(items[t], k) for k in kinds}
+        tv = {k: verify(item, hashlib.sha256(tag + k.encode()).digest())
+              for k, item in tampered.items()}
+        return {members: items, "verdicts": verdicts, "tampered_index": t,
                 "tampered": tampered, "tampered_verdicts": tv}
 
-    data, made_s = _cached(_cache_path("verify", config, key, seed), make)
+    data, made_s = cached(cache_path(what, config, key, seed, owner), make)
     if not all(data["verdicts"]) or any(data["tampered_verdicts"].values()):
-        raise RuntimeError("the reference rejected an honest transaction or accepted a "
+        raise RuntimeError(f"the reference rejected an honest {what} input or accepted a "
                            "tampered one: the generator or the reference is at fault")
     return data, made_s
+
+
+def verify_inputs(config: dict, mix: dict, seed: int, workers: int = POOL_WORKERS):
+    """:func:`checked_inputs` of a verify mix: ``transactions`` wire
+    transactions as "pairs" (tx, proof)."""
+    return checked_inputs("verify", config, seed, int(mix["transactions"]), mix["tampered"],
+                          "pairs", _build_and_verify, tamper, ref_verify, workers=workers)
 
 
 def build_inputs(config: dict, mix: dict, seed: int, workers: int = POOL_WORKERS):
@@ -247,7 +275,7 @@ def build_inputs(config: dict, mix: dict, seed: int, workers: int = POOL_WORKERS
         with pool(min(workers, n_sets)) as p:
             return list(p.map(wire_requests, tags, [per_call] * n_sets, [config] * n_sets))
 
-    return _cached(_cache_path("build", config, key, seed), make)
+    return cached(cache_path("build", config, key, seed), make)
 
 
 def _ref_build_set(wires: list) -> list:
@@ -261,7 +289,7 @@ def reference_builds(config: dict, mix: dict, seed: int, sets: list,
     (one task a request)."""
     out, todo = {}, []
     for k in sorted(set(sets)):
-        path = _cache_path(f"refbuild{k}", config, {"per_call": len(inputs[k])}, seed)
+        path = cache_path(f"refbuild{k}", config, {"per_call": len(inputs[k])}, seed)
         if path.exists():
             with open(path, "rb") as f:
                 out[k] = pickle.load(f)
@@ -271,5 +299,5 @@ def reference_builds(config: dict, mix: dict, seed: int, sets: list,
         with pool(workers) as p:
             futs = {k: [p.submit(_ref_build_set, [w]) for w in inputs[k]] for k, _ in todo}
             for k, path in todo:
-                out[k] = _cached(path, lambda k=k: [f.result()[0] for f in futs[k]])[0]
+                out[k] = cached(path, lambda k=k: [f.result()[0] for f in futs[k]])[0]
     return out

@@ -1,5 +1,6 @@
-"""launches_per_tx.verify: the host's kernel and graph launches in the traced
-segment per transaction answered (profiler runtime events)."""
+"""launches_per_tx.verify: the host's kernel and graph launches of the traced
+segment's accepted calls per transaction they carried (profiler runtime
+events, custom kernels checked against the port's counter)."""
 
 from qqbench.readers import launches_per_tx
 

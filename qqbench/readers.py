@@ -19,12 +19,32 @@ def rate(run, kind: str):
     return stats.rate(run.window)
 
 
-def launches_per_tx(run, kind: str):
-    """The traced segment's host launches per transaction answered."""
-    if run.kind != kind or run.trace is None:
+def device_ms_per_tx(run, kind: str):
+    """The device's busy milliseconds per transaction (or proof) over the
+    accepted calls profiled one by one after the window (``run.device``):
+    every kernel, copy and memset of those calls, over every transaction
+    they carried."""
+    if run.kind != kind or run.device is None or len(run.device_busy) != len(run.device.calls):
         return None
-    txs = sum(c.size for c in run.traced.answered())
-    return run.trace.launches / txs if txs else None
+    accepted = [(b, c.size) for b, c in zip(run.device_busy, run.device.calls) if c.verdict]
+    items = sum(size for _, size in accepted)
+    busy = sum(b for b, _ in accepted)
+    return 1e3 * busy / items if items and busy > 0 else None
+
+
+def launches_per_tx(run, kind: str):
+    """The host launches of the traced segment's accepted calls per
+    transaction (or proof) they carried. A rejected call is left out: it
+    may stop at its first failed check, so its launches depend on where
+    its tampering sits, not on the program alone."""
+    if run.kind != kind or run.trace is None or run.traced is None:
+        return None
+    calls = run.traced.calls
+    if len(run.trace.call_launches) != len(calls):
+        return None
+    accepted = [(n, c.size) for n, c in zip(run.trace.call_launches, calls) if c.verdict is True]
+    items = sum(size for _, size in accepted)
+    return sum(n for n, _ in accepted) / items if items else None
 
 
 def msm_roofline(run, kind: str):

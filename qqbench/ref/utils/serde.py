@@ -339,6 +339,29 @@ def _r_accounts(r: Reader):
     return [_r_account(r) for _ in range(n)]
 
 
+def shuffle_entry_to_bytes(proof: ShuffleProof, statement: ShuffleStatement,
+                           inputs, outputs) -> bytes:
+    """One self-contained shuffle-verification work item: proof + statement
+    + the input/output account vectors (the wire form a verification
+    service ingests)."""
+    w = Writer()
+    w.blob(shuffle_proof_to_bytes(proof, statement))
+    _w_accounts(w, inputs)
+    _w_accounts(w, outputs)
+    return w.bytes_()
+
+
+def shuffle_entry_from_bytes(data: bytes):
+    """-> (proof, statement, input accounts, output accounts)."""
+    r = Reader(data)
+    proof, statement = shuffle_proof_from_bytes(r.blob())
+    inputs = _r_accounts(r)
+    outputs = _r_accounts(r)
+    if not r.done():
+        raise ValueError("trailing bytes in shuffle entry")
+    return proof, statement, inputs, outputs
+
+
 def transaction_to_bytes(tx) -> bytes:
     w = Writer()
     for vec in (tx.input_account_vector, tx.updated_account_vector,

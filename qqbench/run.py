@@ -7,8 +7,9 @@ port (quisquis_tpu_torch). The run:
 
 1. checks for the cards the cell asks for (exits 2, printing no result,
    without them);
-2. makes or reads back the cell's inputs from the seed (``gen.py``, the
-   frozen reference; not counted in ``setup_s``);
+2. makes or reads back the cell's inputs from the seed (the entry's
+   generator on ``gen.py``, the frozen reference; not counted in
+   ``setup_s``);
 3. sets up the port: imports, its kernels (nvcc builds them once per
    checkout into ``build/``), its C++ host curve and STROBE, the entry's
    service or pool, and the mix's warm calls (``warm_calls``, one by
@@ -18,7 +19,11 @@ port (quisquis_tpu_torch). The run:
    that completes after it, and times the host work again (on standard
    error, beside the garbage collector's seconds in the window);
 5. with ``--trace 1``, the window runs with the benchmark's spans on, and
-   then whole calls more run under torch.profiler (``trace.py``);
+   then whole calls more run under torch.profiler (``trace.py``); with
+   ``--trace 0`` in a cell that has an end-to-end metric from the
+   device's trace, calls more run after the window, each alone under the
+   profiler with the device's activity only, until ``DEVICE_CALLS`` were
+   accepted (their device busy time);
 6. reads the device's memory peak, closes the port's service, judges every
    answer against the reference, stops every process it started, and
    prints the compared numbers beside their limits (the last lines of
@@ -68,6 +73,8 @@ class Run:
     program: dict = field(default_factory=dict)   # utils.metrics over the window
     trace: object = None            # trace.TraceSummary (trace runs)
     traced: object = None           # stats.Window of the profiled calls
+    device: object = None           # stats.Window of the calls profiled one by one (--trace 0)
+    device_busy: list = field(default_factory=list)  # the device's busy seconds of each
     msm_rows: list = field(default_factory=list)  # per profiled MSM call: terms a row
     peaks: object = None            # roofline.peaks of the card
 
@@ -85,10 +92,13 @@ def say(msg: str) -> None:
     print(f"qqbench: {msg}", file=sys.stderr, flush=True)
 
 
-def loop(entry, items, seconds: float, spans=None, keep: bool = True, min_calls: int = 1):
+def loop(entry, items, seconds: float, spans=None, keep: bool = True, min_calls: int = 1,
+         accepted: bool = False):
     """Calls of the closed loop until at least `min_calls` have run and the
-    last completes at or after `seconds` from the first's start; stops at
-    the first call that raised something other than a verdict."""
+    last completes at or after `seconds` from the first's start (with
+    `accepted`, also until one call was accepted, or 4 x `seconds` have
+    passed); stops at the first call that raised something other than a
+    verdict."""
     window = stats.Window()
     while True:
         item = next(items)
@@ -106,7 +116,10 @@ def loop(entry, items, seconds: float, spans=None, keep: bool = True, min_calls:
             spans.end_call(keep and call.verdict is not None)
         entry.settle(call)
         window.calls.append(call)
-        if call.verdict is None or (len(window.calls) >= min_calls and window.closed(seconds)):
+        if call.verdict is None or (
+                len(window.calls) >= min_calls and window.closed(seconds)
+                and (not accepted or any(c.verdict for c in window.calls)
+                     or window.closed(4 * seconds))):
             return window
 
 
@@ -127,48 +140,21 @@ class GcClock:
             self._t = None
 
 
-def install_spans(spans, kind: str) -> None:
-    """The benchmark's spans around the port's device layers, and labels
-    of its host steps for the profiled segment's idle gaps."""
-    from quisquis_tpu_torch.transaction import transaction as tx
-    from quisquis_tpu_torch.utils import serde
-
-    if kind == "verify":
-        from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks, DeviceBatchCollector
-
-        spans.wrap(DeviceBatchCollector, "verify", "device_verify")
-        spans.wrap(DeferredPointChecks, "verify", "device_msm",
-                   when=lambda self, backend="auto", **k: backend == "device")
-        spans.label(serde, "transaction_from_bytes", "wire_decode")
-        spans.label(serde, "transaction_proof_from_bytes", "wire_decode")
-        spans.label(tx, "verify_transaction_auto", "host_replay")
-    else:
-        from quisquis_tpu_torch.bulletproofs.range_proof import RangeProof
-
-        spans.wrap(RangeProof, "prove_batch", "prove_batch")
-        spans.label(tx, "_tx_pre_range", "host_pre_range")
-        spans.label(tx, "_tx_post_range", "host_post_range")
-
-
 def run_cell(args, spec: Spec, cell: dict, require_card: bool = True, entry_factory=None,
              t0: float = None):
     """The run without the process handling: (result dict, compared
     {name: (value, limit)}). `entry_factory` replaces the port's entry
     (tests and the control); `require_card` False runs without a card."""
-    from qqbench import gen, hostprobe, roofline
-    from qqbench.entries import ENTRIES
+    from qqbench import entries, hostprobe, roofline
 
     t0 = time.perf_counter() if t0 is None else t0
     import torch
 
     config, mix = spec.config(cell), spec.traffic(cell)
-    entry_cls = ENTRIES[mix["entry"]]
+    entry_cls = entries.load(mix["entry"])
     if entry_factory is None:
         import quisquis_tpu_torch  # noqa: F401  (fails here, before any input is made, outside a checkout)
-    if mix["entry"] == "verify_wire":
-        inputs, made_s = gen.verify_inputs(config, mix, args.seed)
-    else:
-        inputs, made_s = gen.build_inputs(config, mix, args.seed)
+    inputs, made_s = entry_cls.inputs(config, mix, args.seed)
     say(f"inputs of {cell['name']} seed {args.seed}: "
         + (f"made in {made_s:.1f} s" if made_s else "read from the cache"))
 
@@ -190,7 +176,7 @@ def run_cell(args, spec: Spec, cell: dict, require_card: bool = True, entry_fact
             from qqbench.probes import MsmRecorder, Spans
 
             spans = Spans(torch)
-            install_spans(spans, entry.kind)
+            entry_cls.install_spans(spans)
             recorder = MsmRecorder(torch, qmsm)
         warm = loop(entry, items, 0.0, spans, keep=False, min_calls=int(mix.get("warm_calls", 1)))
         if require_card:
@@ -210,20 +196,39 @@ def run_cell(args, spec: Spec, cell: dict, require_card: bool = True, entry_fact
                 window = loop(entry, items, args.seconds, spans)
             finally:
                 gc.callbacks.remove(gc_clock)
-        say(f"window {window.seconds:.2f} s, {len(window.calls)} calls; seconds a call: "
+        say(f"window {window.seconds:.2f} s, {len(window.calls)} calls, "
+            f"{stats.rate(window) if window.calls else 0.0:.4f} accepted items a second; seconds a call: "
             + " ".join(f"{c.seconds:.3f}" for c in window.calls[:60]))
+        by_verdict = {v: [c.seconds for c in window.calls if c.verdict is v] for v in (True, False)}
+        if by_verdict[False]:
+            say("mean seconds a call: " + ", ".join(
+                f"{w} {sum(t) / len(t):.4f} ({len(t)} calls)" for w, t in
+                (("accepted", by_verdict[True]), ("rejected", by_verdict[False])) if t))
         say(f"garbage collection in the window {gc_clock.seconds:.3f} s over "
             f"{'/'.join(map(str, gc_clock.collections))} collections (generations 0/1/2)")
         say(hostprobe.line("after", hostprobe.probe()))
+        if spans is not None:
+            names = sorted({n for c in spans.per_call for n in c})
+            say("the benchmark's spans, ms a call of the window: "
+                + ", ".join(f"{n} {spans.mean_ms(n):.3f}" for n in names))
         run = Run(kind=entry.kind, window=window, setup_s=setup_s, spans=spans,
                   peaks=roofline.peaks(card))
         if program is not None:
             run.program = {"timers": {k: list(v) for k, v in program.timers.items()},
                            "counters": dict(program.counters)}
-        traced = stats.Window()
+        traced = devcalls = stats.Window()
         if args.trace and window.calls and window.calls[-1].verdict is not None:
             run.trace, traced, run.msm_rows = profile_calls(torch, entry, items, spans, recorder)
             run.traced = traced
+        if (not args.trace and require_card and window.calls
+                and window.calls[-1].verdict is not None
+                and any(m["source"] == "device_trace" for m in spec.metrics_of(cell, False))):
+            devcalls, run.device_busy, kernels = device_calls(torch, entry, items)
+            run.device = devcalls
+            say("calls profiled one by one (item, verdict, transactions, device busy ms, "
+                "of it kernels ms): " + ", ".join(
+                    f"({c.item}, {c.verdict}, {c.size}, {1e3 * b:.3f}, {1e3 * k:.3f})"
+                    for c, b, k in zip(devcalls.calls, run.device_busy, kernels)))
         memory_peak = torch.cuda.max_memory_allocated(0) if require_card else 0
     finally:
         if spans is not None:
@@ -234,7 +239,7 @@ def run_cell(args, spec: Spec, cell: dict, require_card: bool = True, entry_fact
     if require_card:
         torch.cuda.empty_cache()
 
-    calls = warm.calls + window.calls + traced.calls
+    calls = warm.calls + window.calls + traced.calls + devcalls.calls
     failed = [c for c in calls if c.verdict is None]
     compared = entry.judge([c for c in calls if c.verdict is not None], config, mix, args.seed)
     compared["errors"] = (len(failed), 0)
@@ -257,16 +262,25 @@ def run_cell(args, spec: Spec, cell: dict, require_card: bool = True, entry_fact
         result["breakdown"] = run.trace.breakdown()
         say(f"traced {len(traced.calls)} calls: launches {run.trace.launches} "
             f"({run.trace.launches_from_counter} from the port's counter; custom kernels "
-            f"{run.trace.custom_seen} seen of {run.trace.custom_counted} counted)")
+            f"{run.trace.custom_seen} seen of {run.trace.custom_counted} counted); a call's "
+            "launches (item, verdict): " + ", ".join(
+                f"{n} ({c.item}, {c.verdict})" for n, c in zip(run.trace.call_launches[:24],
+                                                                traced.calls)))
     return result, compared
 
 
+#: the port's process-wide protocol settings (``config.DEFAULT``) that a
+#: configuration's file may state; the anonymity set's size is not among them,
+#: as the port takes it from each proof's accounts
+PORT_SETTINGS = ("range_bits", "bp_gens_capacity", "bp_party_capacity")
+
+
 def check_port_config(config: dict) -> None:
-    """The port runs the configuration as its file states it."""
+    """The port runs the configuration as its file states it: each of
+    :data:`PORT_SETTINGS` that the file states."""
     from quisquis_tpu_torch.config import DEFAULT
 
-    want = {"range_bits": config["range_bits"], "bp_gens_capacity": config["bp_gens_capacity"],
-            "bp_party_capacity": config["bp_party_capacity"]}
+    want = {k: config[k] for k in PORT_SETTINGS if k in config}
     have = {k: getattr(DEFAULT, k) for k in want}
     if have != want:
         raise RuntimeError(f"the port's protocol settings {have} are not the configuration's {want}")
@@ -279,21 +293,57 @@ def program_metrics():
 
 
 def profile_calls(torch, entry, items, spans, recorder):
-    """Whole calls under the profiler (at least one, and until
-    trace.TRACE_MIN_S have passed): (summary, their window, MSM rows)."""
+    """Whole calls under the profiler (until trace.TRACE_MIN_S have passed
+    and one call was accepted): (summary, their window, MSM rows). The
+    port's counter of custom-kernel launches is read around each call, so
+    that the summary gives each call its own launches."""
     from quisquis_tpu_torch.ops import cuda_build
 
     from qqbench.trace import TRACE_MIN_S, Profiled
 
-    spans.profiling, recorder.on = True, True
-    cuda_build.reset_launches()
+    custom, call = [], entry.call
+
+    def counted(item, out):
+        n0 = sum(cuda_build.LAUNCHES.values())
+        try:
+            call(item, out)
+        finally:
+            custom.append(sum(cuda_build.LAUNCHES.values()) - n0)
+
+    spans.profiling, recorder.on, entry.call = True, True, counted
     try:
         with Profiled(torch) as prof:
-            traced = loop(entry, items, TRACE_MIN_S, spans, keep=False)
+            traced = loop(entry, items, TRACE_MIN_S, spans, keep=False, accepted=True)
     finally:
         spans.profiling, recorder.on = False, False
-    custom = sum(cuda_build.LAUNCHES.values())
+        del entry.call
     return prof.summary("qqbench.call", custom), traced, recorder.counts()
+
+
+#: accepted calls that a --trace 0 run profiles after its window for the
+#: device's busy time, and the most calls it tries for them
+DEVICE_CALLS, DEVICE_TRIES = 8, 16
+
+
+def device_calls(torch, entry, items):
+    """Whole calls of the loop after the window, each alone under the
+    profiler with the device's activity only, until DEVICE_CALLS were
+    accepted (or DEVICE_TRIES were made, or one raised something other than
+    a verdict): (their window, the device's busy seconds in each call, and
+    of these the seconds in which a kernel ran)."""
+    from qqbench.trace import Profiled
+
+    window, busy, kernels = stats.Window(), [], []
+    while len(window.calls) < DEVICE_TRIES and sum(
+            1 for c in window.calls if c.verdict) < DEVICE_CALLS:
+        with Profiled(torch, device_only=True) as prof:
+            one = loop(entry, items, 0.0)
+        window.calls += one.calls
+        busy.append(prof.busy_s())
+        kernels.append(prof.busy_s(kinds={"kernel"}))
+        if one.calls[-1].verdict is None:
+            break
+    return window, busy, kernels
 
 
 def main(argv=None) -> int:

@@ -9,6 +9,7 @@ state from call to call, so "a step that returns its state unchanged" is
 a build's (the last call's transactions handed back again)."""
 
 import argparse
+import copy
 import dataclasses
 
 import pytest
@@ -20,6 +21,7 @@ from qqbench.spec import Spec
 
 SEED = 2 ** 32 + 4099
 KINDS = ["output_shuffle_E_k_0", "range_proof_ipp_a", "sigma_delta_dleq_zv_0"]
+SHUFFLE_KINDS = ["ddh_z", "multiexpo_commit_E_k_0", "product_svp_r_twildle"]
 SMALL = {
     "block32": {"entry": "verify_wire", "backend": "host", "workers": 2, "transactions": 4,
                 "group_size": 2, "tampered": KINDS, "tamper_every": 2},
@@ -28,8 +30,13 @@ SMALL = {
                   "warm_calls": 2},
     "build16": {"entry": "build", "range_backend": "host", "requests_per_call": 2,
                 "request_sets": 2},
+    "shuffle64": {"entry": "verify_shuffle_wire", "backend": "merged-host", "workers": 2,
+                  "proofs": 4, "group_size": 2, "tampered": SHUFFLE_KINDS, "tamper_every": 2},
 }
-VERIFY_CELLS = ["n9-block32-batched", "n9-mempool16-pool"]
+#: the shuffle cell at a small square size: 2 proofs a call over 9 accounts
+SMALL_CONFIGS = {"qq-shuffle-8x8-n64": {"anonymity_set_size": 9, "shuffle_rows": 3,
+                                        "shuffle_columns": 3}}
+VERIFY_CELLS = ["n9-block32-batched", "n9-mempool16-pool", "n64-shuffle64-batched"]
 #: the mempool mix on the host pool, kept for a later cell (not in BENCHMARK.json: its
 #: host-bound rate spread beyond any bound on the card's shared host, PERF.md section 6)
 POOL_CELL = {"name": "n9-mempool16-pool", "config": "qq-tx-1x1-n9", "traffic": "mempool16",
@@ -41,6 +48,8 @@ def spec():
     s = Spec.load()
     s.workloads.setdefault(POOL_CELL["name"], POOL_CELL)
     s.traffic = lambda cell: dict(SMALL[cell["traffic"]], name=cell["traffic"])
+    config = s.config
+    s.config = lambda cell: dict(config(cell), **SMALL_CONFIGS.get(cell["config"], {}))
     return s
 
 
@@ -143,6 +152,50 @@ def test_a_broken_build_is_not_correct(spec, fault):
     assert compared["wrong_transactions"][0] > 0
 
 
+def test_a_shuffle_verifier_without_point_checks_is_not_correct(spec, monkeypatch):
+    """The cell's own backend, device-batched, on the CPU, with the device
+    verifier's one MSM over every point identity read as passed: the
+    transcripts and scalar checks run, no point identity is checked. The
+    window's first call is the tampering that only a point identity
+    catches (a DDH response also fails its challenge, a scalar check)."""
+    import torch
+
+    from quisquis_tpu_torch.shuffle import device_verify
+
+    monkeypatch.setattr(device_verify._LaneChecks, "verify_msm",
+                        lambda self: torch.tensor(True))
+    batched = copy.copy(spec)
+    batched.traffic = lambda cell: dict(spec.traffic(cell), backend="device-batched")
+
+    def point_tampering_first(entry):
+        entry.kinds = ["multiexpo_commit_E_k_0"]
+    result, compared = run(batched, "n64-shuffle64-batched", on_cpu(point_tampering_first),
+                           seconds=1.0)
+    assert not result["correct"] and compared["wrong_verdicts"][0] > 0, compared
+
+
+def test_the_port_rejects_each_shuffle_tampering_on_the_device_path(spec):
+    """The cell's own backend, device-batched, on the CPU: the honest group
+    of two proofs is accepted and each tampered group rejected."""
+    from qqbench.entries import VerifyShuffleWire
+    from qqbench.stats import Call
+
+    cell = spec.workload("n64-shuffle64-batched")
+    config, mix = spec.config(cell), dict(spec.traffic(cell), backend="device-batched")
+    inputs, _ = VerifyShuffleWire.inputs(config, mix, SEED)
+    entry = VerifyShuffleWire(config, mix, inputs, SEED, "cpu")
+    try:
+        bad = entry.bad_group
+        for kind in [None] + SHUFFLE_KINDS:
+            out = Call(start=0.0, end=0.0, item=(bad, kind), size=0)
+            entry.call(out.item, out)
+            assert out.verdict is (kind is None) and entry.expected(out.item) is (kind is None)
+            assert out.done == (2 if kind is None else 0), kind
+    finally:
+        entry.close()
+        procs.stop_children()
+
+
 def test_an_error_in_a_call_ends_the_window_and_is_not_correct(spec):
     def broken(entry):
         def fail(pairs):
@@ -152,9 +205,10 @@ def test_an_error_in_a_call_ends_the_window_and_is_not_correct(spec):
     assert not result["correct"] and compared["errors"][0] == 1
 
 
-@pytest.mark.parametrize("name,control", [(c, k) for c in VERIFY_CELLS
+@pytest.mark.parametrize("name,control", [(c, k) for c in VERIFY_CELLS[:2]
                                           for k in ("no-point-checks", "no-sigma-checks")]
-                         + [("n9-4x4-build16-batched", "range-32")])
+                         + [("n64-shuffle64-batched", "no-point-checks"),
+                            ("n9-4x4-build16-batched", "range-32")])
 def test_the_control_is_not_correct(spec, name, control):
     # long enough for every tampered kind to be sent (the sixth call is the third kind)
     result, compared = run(spec, name, control_factory(control), seconds=6.0)

@@ -22,13 +22,15 @@ def loaded(code: str) -> set:
     return set(json.loads(out.stdout.strip().splitlines()[-1]))
 
 
-@pytest.mark.parametrize("name", ["n9-block32-batched", "n9-4x4-build16-batched"])
+@pytest.mark.parametrize("name", ["n9-block32-batched", "n9-4x4-build16-batched",
+                                  "n64-shuffle64-batched"])
 def test_a_cells_imports_load_no_jax_and_no_jax_package(name):
     code = f"""
 from qqbench import run, entries, gen, trace, probes, roofline, readers, procs, control, hostprobe
 from qqbench.spec import Spec, reader
 spec = Spec.load()
 cell = spec.workload({name!r})
+entries.load(spec.traffic(cell)["entry"])
 for m in spec.metrics_of(cell, False) + spec.metrics_of(cell, True):
     reader(m["name"])
 import quisquis_tpu_torch
@@ -55,6 +57,12 @@ pair = gen.ref_build(reqs[0])
 assert gen.ref_verify(pair, bytes(32))
 for kind in gen.TAMPER_KINDS:
     assert not gen.ref_verify(gen.tamper(pair, kind), bytes(32))
+from qqbench.entries import verify_shuffle_wire as vs
+cfg = {"anonymity_set_size": 4, "proof_label": "Shuffle", "transcript_label": "ShuffleProof"}
+blob = vs.ref_prove(b"isolation", cfg, 0)
+assert vs.ref_verify(blob, cfg, bytes(32))
+for kind in vs.TAMPER_KINDS:
+    assert not vs.ref_verify(vs.tamper(blob, kind), cfg, bytes(32))
 from qqbench import hostprobe
 hostprobe.probe()
 """

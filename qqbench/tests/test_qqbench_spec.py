@@ -78,12 +78,15 @@ def test_metrics(spec):
     assert all(len(v) == 1 for v in layers.values()), layers
 
 
-@pytest.mark.parametrize("name", ["n9-block32-batched", "n9-4x4-build16-batched"])
+@pytest.mark.parametrize("name", ["n9-block32-batched", "n9-4x4-build16-batched",
+                                  "n64-shuffle64-batched"])
 def test_each_cell_resolves_and_reports(spec, name):
+    from qqbench import entries
+
     cell = spec.workload(name)
     assert cell["chips"] == 1 and len(cell["why"]) <= 200
     config, mix = spec.config(cell), spec.traffic(cell)
-    assert config["name"] == cell["config"] and mix["entry"] in ("verify_wire", "build")
+    assert config["name"] == cell["config"] and mix["entry"] in entries.names()
     e2e = [m["name"] for m in spec.metrics_of(cell, False)]
     assert "setup_s" in e2e and len(e2e) >= 2
     assert spec.metrics_of(cell, True)
@@ -92,15 +95,29 @@ def test_each_cell_resolves_and_reports(spec, name):
 def test_configs_keep_the_reference_widths(spec):
     used = {w["config"] for w in spec.data["workloads"]}
     assert used == set(spec.configs)
+    widths = {"anonymity_set_size", "shuffle_rows", "shuffle_columns", "range_bits",
+              "bp_gens_capacity", "bp_party_capacity", "scalar_bits", "values_per_range_proof",
+              "senders", "receivers"}
     for entry in spec.data["configs"]:
-        assert entry["reduced"] == [] and entry["file"].startswith("qqbench/")
+        assert entry["file"].startswith("qqbench/")
         with open(ROOT / entry["file"]) as f:
             cfg = json.load(f)
-        assert cfg["range_bits"] == 64 and cfg["scalar_bits"] == 253
-        assert (cfg["bp_gens_capacity"], cfg["bp_party_capacity"]) == (64, 16)
+        # every cut is of scale, stated in the file with its cause; no width is cut
+        assert not set(entry["reduced"]) & widths
+        assert all(k in cfg and k in cfg["cut"] for k in entry["reduced"])
+        assert cfg["source"] == entry["source"]
+        assert cfg["scalar_bits"] == 253
         assert math.isqrt(cfg["anonymity_set_size"]) ** 2 == cfg["anonymity_set_size"]
-        assert cfg["anonymity_set_size"] == 9   # the reference's fixed 3x3 shuffle
-        assert cfg["values_per_range_proof"] == cfg["senders"] + cfg["receivers"]
+        if "range_bits" in cfg:   # a transaction's configuration
+            assert cfg["range_bits"] == 64
+            assert (cfg["bp_gens_capacity"], cfg["bp_party_capacity"]) == (64, 16)
+            assert cfg["anonymity_set_size"] == 9   # the reference's fixed 3x3 shuffle
+            assert cfg["values_per_range_proof"] == cfg["senders"] + cfg["receivers"]
+            assert entry["reduced"] == []
+        else:                     # a standalone shuffle's, at a stated square size
+            assert cfg["shuffle_rows"] * cfg["shuffle_columns"] == cfg["anonymity_set_size"]
+            assert (cfg["proof_label"], cfg["transcript_label"]) == ("Shuffle", "ShuffleProof")
+            assert "anonymity_set_size" in cfg["assumed"]
     files = [e["file"] for e in spec.data["configs"]]
     assert len(files) == len(set(files))
 

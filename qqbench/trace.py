@@ -1,5 +1,8 @@
 """The profiled segment of a ``--trace 1`` run, read from torch.profiler's
-events in memory (no chrome trace is written).
+events in memory (no chrome trace is written). (A ``--trace 0`` run of a
+cell with an end-to-end metric from the device's trace profiles whole
+calls too, each alone and with the device's activity only, for the busy
+time of each: ``Profiled(torch, device_only=True).busy_s()``.)
 
 After the measured window closes, the run profiles whole calls of the same
 loop (at least one, and until ``TRACE_MIN_S`` have passed) with the CPU and
@@ -15,6 +18,11 @@ CUDA activities on. From the events it takes:
   (``probes.COUNT_RANGE``) left out; the port's custom kernels, launched
   from a library of its own, are checked against their runtime events and
   added from ``cuda_build.LAUNCHES`` where their events are missing;
+- ``call_launches``: the same count for each call of the loop (each
+  launch given to the call range it was issued in, the missing custom
+  launches from that call's own reading of the counter), so that a reader
+  can count the calls it chooses: a call whose answer was a rejection may
+  stop early and launch a fraction of an accepted call's kernels;
 - the device time of each kernel name, and the idle gaps by what the host
   was doing: the innermost profiler range or torch operator on the loop's
   thread at the middle of each gap.
@@ -40,7 +48,8 @@ HOST_ACTIVITIES = frozenset({"cpu_op", "user_annotation"})
 #: the port's custom kernels (``csrc/*.cu``), by the name of their function
 #: (the profiler shows them inside their C++ namespace)
 CUSTOM_KERNELS = ("scalar_mul_kernel", "base_mul_kernel", "msm_table_kernel",
-                  "msm_acc_kernel", "msm_tail_kernel", "keccak_f1600_kernel")
+                  "msm_acc_kernel", "msm_tail_kernel", "keccak_f1600_kernel",
+                  "ristretto_decode_kernel", "ristretto_encode_kernel")
 
 
 @dataclass
@@ -53,6 +62,7 @@ class TraceSummary:
     idle_by_host: dict = field(default_factory=dict)  # host label -> seconds
     custom_seen: int = 0
     custom_counted: int = 0
+    call_launches: list = field(default_factory=list)  # launches of each call, in order
 
     def breakdown(self) -> dict:
         top = sorted(self.kernel_s.items(), key=lambda kv: -kv[1])[:10]
@@ -63,17 +73,20 @@ class TraceSummary:
 
 class Profiled:
     """A profiled segment: ``with Profiled(torch) as p: ...`` then
-    :meth:`summary`."""
+    :meth:`summary`, or with `device_only` (no host activity recorded, so
+    less overhead and fewer events) :meth:`busy_s`."""
 
-    def __init__(self, torch):
-        self.torch = torch
+    def __init__(self, torch, device_only: bool = False):
+        self.torch, self.device_only = torch, device_only
         self.prof = None
         self.t0_ns = self.t1_ns = 0
 
     def __enter__(self):
         P = self.torch.profiler
         self.torch.cuda.synchronize()
-        self.prof = P.profile(activities=[P.ProfilerActivity.CPU, P.ProfilerActivity.CUDA])
+        acts = [P.ProfilerActivity.CUDA] if self.device_only else [P.ProfilerActivity.CPU,
+                                                                   P.ProfilerActivity.CUDA]
+        self.prof = P.profile(activities=acts)
         self.prof.__enter__()
         self.torch.cuda.synchronize()
         self.t0_ns = time.time_ns()
@@ -85,11 +98,23 @@ class Profiled:
         self.prof.__exit__(*exc)
         return False
 
-    def summary(self, thread_label: str, custom_launches: int) -> TraceSummary:
-        """Reduce the events. `thread_label`: a range the loop's thread
-        opens (names the thread whose host work labels the gaps);
-        `custom_launches`: the port's counter of custom-kernel launches
-        over the segment."""
+    def busy_s(self, kinds=DEVICE_ACTIVITIES) -> float:
+        """Seconds of the segment in which a kernel, copy or memset (of
+        `kinds`) ran on the device."""
+        t0, t1 = self.t0_ns, self.t1_ns
+        intervals = []
+        for e in self.prof.profiler.kineto_results.events():
+            if activity(e) in kinds:
+                a, b = max(e.start_ns(), t0), min(e.start_ns() + e.duration_ns(), t1)
+                if b > a:
+                    intervals.append((a, b))
+        return _union(intervals, t0, t1)[0] * 1e-9
+
+    def summary(self, thread_label: str, custom_launches: list) -> TraceSummary:
+        """Reduce the events. `thread_label`: the range the loop's thread
+        opens around each call (names the thread whose host work labels
+        the gaps, and the calls); `custom_launches`: the port's counter of
+        custom-kernel launches over each call."""
         events = self.prof.profiler.kineto_results.events()
         t0, t1 = self.t0_ns, self.t1_ns
         device, runtime, host = [], [], []
@@ -116,9 +141,19 @@ class Profiled:
                 own_corr.add(r.correlation_id())
         launch_corr = {r.correlation_id() for r in runtime
                        if r.name() in LAUNCH_CALLS and r.correlation_id() not in own_corr}
+        calls = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in host
+                       if e.name() == thread_label)
+        call_starts = [a for a, _ in calls]
+        call_of = {}    # launch correlation id -> the call it was issued in
+        for r in runtime:
+            if r.correlation_id() in launch_corr:
+                k = bisect.bisect_right(call_starts, r.start_ns()) - 1
+                if k >= 0 and r.start_ns() < calls[k][1]:
+                    call_of[r.correlation_id()] = k
 
         kernel_s = defaultdict(float)
         intervals = []
+        seen = [0] * len(calls)
         custom_seen = 0
         for e in device:
             if e.correlation_id() in own_corr:
@@ -130,13 +165,24 @@ class Profiled:
                 kernel_s[e.name()] += e.duration_ns() * 1e-9
                 if any(k in e.name() for k in CUSTOM_KERNELS) and e.correlation_id() in launch_corr:
                     custom_seen += 1
+                    if e.correlation_id() in call_of:
+                        seen[call_of[e.correlation_id()]] += 1
         busy_ns, gaps = _union(intervals, t0, t1)
-        missing = max(0, custom_launches - custom_seen)
+        per_call = [0] * len(calls)
+        for k in call_of.values():
+            per_call[k] += 1
+        if len(custom_launches) == len(calls):
+            missing = [max(0, n - s) for n, s in zip(custom_launches, seen)]
+            per_call = [n + m for n, m in zip(per_call, missing)]
+            missing = sum(missing)
+        else:   # the calls' ranges and readings do not pair: no call has its own count
+            missing, per_call = max(0, sum(custom_launches) - custom_seen), []
         return TraceSummary(
             window_s=(t1 - t0) * 1e-9, busy_s=busy_ns * 1e-9,
             launches=len(launch_corr) + missing, launches_from_counter=missing,
             kernel_s=dict(kernel_s), idle_by_host=_label_gaps(gaps, host),
-            custom_seen=custom_seen, custom_counted=custom_launches)
+            custom_seen=custom_seen, custom_counted=sum(custom_launches),
+            call_launches=per_call)
 
 
 def activity(e) -> str:
