@@ -131,8 +131,10 @@ Phases, each printed on its own line:
      requests (row 6d) equal to an in-process _build_chunk replay and
      verified; RangeProvingService at row 4e on device-batched, lanes 0-3
      equal to the host service's, all 32 verified; Signature.batch_verify of
-     21,845 signatures (65,535 terms, BASELINE.json config 3) on "device"
-     and "host", a forged s rejected by both; the merged and Schnorr MSMs
+     21,845 signatures (65,535 terms, BASELINE.json config 3) on "device",
+     "device-batched" (the whole verification one device program) and
+     "host", a forged s rejected by all three, each call's ms and its
+     MSM's share printed; the merged and Schnorr MSMs
      held to the plain MSM stages; then the resident daemon (python -m
      quisquis_tpu_torch.daemon, two warm shapes) and a fresh client process
      that pings, verifies the shuffle entries (first and second request
@@ -1093,13 +1095,27 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
             h.sync()
             spent[backend] = (time.perf_counter() - t) * 1e3
 
-    walls, msm_ms = {}, {}
+    real_msm = qmsm.msm
+
+    def timed_msm(*a, **k):
+        spent["terms"] = a[0].shape[0]
+        h.sync()
+        t = time.perf_counter()
+        try:
+            return real_msm(*a, **k)
+        finally:
+            h.sync()
+            spent["device-batched"] = (time.perf_counter() - t) * 1e3
+
+    walls, msm_ms, launches = {}, {}, {}
     DeferredPointChecks.verify = timed_verify
     try:
-        for backend in ("device", "host"):
+        for backend in ("device", "device-batched", "host"):
             cb.reset_launches()
             if backend == "device":
                 seen, restore = h.keep_calls([(qmsm, "msm", "msm")])
+            elif backend == "device-batched":
+                qmsm.msm = timed_msm
             t = time.perf_counter()
             try:
                 Signature.batch_verify(items_of(), backend=backend, seed=b"chip-smoke-3",
@@ -1107,25 +1123,35 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
             finally:
                 if backend == "device":
                     restore()
+                qmsm.msm = real_msm
             walls[backend] = (time.perf_counter() - t) * 1e3
             msm_ms[backend] = spent[backend]   # before the forged call's
-            if backend == "device":
-                schnorr_launches = _launched(cb)
-                check(set(schnorr_launches) == set(msm_kernels),
-                      f"Schnorr device launches {schnorr_launches}")
+            if backend != "host":
+                launches[backend] = _launched(cb)
+                want = set(msm_kernels) | ({"keccak_f1600", "ristretto_decode"}
+                                           if backend == "device-batched" else set())
+                check(set(launches[backend]) == want,
+                      f"Schnorr {backend} launches {launches[backend]}")
+            if backend == "device-batched":
+                check(spent["terms"] == 3 * n_sigs,
+                      f"the device-batched MSM holds {spent['terms']} terms")
             rejected(lambda: Signature.batch_verify(items_of(forge=True), backend=backend,
                                                     seed=b"chip-smoke-3", device=dev))
     finally:
         DeferredPointChecks.verify = real_verify
+        qmsm.msm = real_msm
     msm3 = seen["msm"][0]
     check(msm3[0].shape[0] == spent["terms"], f"the Schnorr MSM holds {spent['terms']} terms")
     schnorr = types.SimpleNamespace(items_of=items_of, msm=msm3, call_ms=walls["device"])
     h.say(phase, f"Signature.batch_verify of {n_sigs} signatures ({spent['terms']} terms, "
                  f"BASELINE.json config 3; signed in {sign_s:.1f} s by {N_WORKERS} worker "
-                 f"processes): accepted by device and host, one forged s rejected by both; "
-                 f"device call {walls['device']:.1f} ms, of it the MSM {msm_ms['device']:.2f} ms "
-                 f"(launches {schnorr_launches}); host call {walls['host']:.1f} ms, of it the "
-                 f"MSM {msm_ms['host']:.2f} ms [{h.card}]")
+                 f"processes): accepted by device, device-batched and host, one forged s "
+                 f"rejected by all three; "
+                 + "; ".join(f"{b} call {walls[b]:.1f} ms, of it the MSM {msm_ms[b]:.2f} ms "
+                             f"({100 * msm_ms[b] / walls[b]:.1f}%)"
+                             + (f", launches {launches[b]}" if b in launches else "")
+                             for b in ("device", "device-batched", "host"))
+                 + f" [{h.card}]")
 
     # -- the kernels at this phase's shapes ------------------------------------
     held(msm5, f"5d's merged MSM ({msm5[0].shape[0]} points)")

@@ -223,9 +223,15 @@ class DeferredPointChecks:
         10.00-14.65 / 4.34-6.96), 1,449 (1 + 1 over 64; 12.60-14.73 /
         5.81-5.89) and 1,467 (4 + 4 over 16; 11.97-12.30 / 6.01-6.04). The
         host's threaded Pippenger leads again from about 14,500 terms
-        (41.8-51.6 / 49.0-61.6 at 14,575), a size that no caller of "auto"
-        reaches (``python3 -m quisquis_tpu_torch.auto_rules``; PERF.md §5). The
-        JAX package's crossover was measured on a TPU and is not carried over.
+        (41.8-51.6 / 49.0-61.6 at 14,575; ``python3 -m
+        quisquis_tpu_torch.auto_rules``; PERF.md §5). The callers of "auto"
+        stay below that: ``verify_transaction`` defers one transaction's
+        checks (559-1,467 terms above), and ``Signature.batch_verify``'s
+        "auto" sends 256 signatures or more to its "device-batched" program
+        (``primitives.device_schnorr``), so it defers at most 765 terms
+        here; a config-3 batch of 21,845 signatures (65,535 terms) reached
+        this rule before that program existed. The JAX package's crossover
+        was measured on a TPU and is not carried over.
         """
         if backend == "auto":
             resolve_device(device)

@@ -21,7 +21,11 @@ reading, host clock, each call synchronised:
    coalesced terms that ``verify_transaction`` collects from one
    transaction of each shape of :data:`TX_SHAPES` (the accumulator its
    "auto" decides on), on those of 1, 2, 4, ... shuffle proofs of side 8
-   and on checks of :data:`FEW_TERMS` terms.
+   and on checks of :data:`FEW_TERMS` terms;
+5. ``Signature.batch_verify``: "host", "device" (the host replay and one
+   MSM on the card) and "device-batched" (``primitives.device_schnorr``)
+   on the same signatures, one distinct key each, at the batches of
+   :data:`SCHNORR_BATCHES` (the "auto" rule's count).
 
 Each line ends with the batch from which the device is ahead, if any.
 ``--quick`` takes the smallest shapes only (a first check of the script).
@@ -48,6 +52,7 @@ from .bulletproofs import device_prove as rdp
 from .bulletproofs.range_proof import RangeProof
 from .kernel_ab import median_ms
 from .ops import exact as ex
+from .primitives.schnorr import Signature, VerificationKey
 from .primitives.keys import RistrettoPublicKey, RistrettoSecretKey
 from .shuffle import device_prove as sdp
 from .shuffle.shuffle import Shuffle, ShuffleProof, batch_verify_shuffle_proofs
@@ -65,6 +70,8 @@ FEW_TERMS = (8, 64, 128, 192, 256, 512)
 #: (senders, accounts) of one transaction: configs 6/6b (1 + 1 over 9),
 #: 2 + 2 over 9, 6e (4 + 4 over 16), and 1 + 1 over 64
 TX_SHAPES = ((1, 9), (2, 9), (4, 16), (1, 64))
+#: signatures a Signature.batch_verify call; 21,845 is BASELINE.json config 3
+SCHNORR_BATCHES = (64, 256, 1024, 4096, 21845)
 HOST_REPS = 5
 DEVICE_REPS = 2
 
@@ -225,6 +232,47 @@ def read_defer(card: str, entries, defer_proofs, few_terms=FEW_TERMS, tx_shapes=
     return line
 
 
+def _signatures(count: int) -> list:
+    """(signature, transcript, key) x count, each by its own key over a
+    transcript of one label."""
+    r = SeededRng(seed=b"auto-rules-schnorr")
+    out = []
+    for _ in range(count):
+        sk = r.random_scalar()
+        vk = VerificationKey.from_secret(sk, r.random_scalar())
+        t = Transcript(b"auto-rules-schnorr")
+        out.append((Signature.sign(t.clone(), vk, sk, rng=r), t, vk))
+    return out
+
+
+def read_schnorr(card: str, batches=SCHNORR_BATCHES, device="cuda") -> str:
+    """One line of Signature.batch_verify readings on each backend, each
+    call on fresh clones of the transcripts (made before the clock starts);
+    returns it."""
+    items = _signatures(max(batches))
+    parts, ahead = [], []
+    for b in batches:
+        ms = {}
+        for backend in ("host", "device", "device-batched"):
+            walls = []
+            for _ in range(1 + DEVICE_REPS):   # the first call warms the shape
+                batch = [(s, t.clone(), v) for s, t, v in items[:b]]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                Signature.batch_verify(batch, backend=backend, seed=b"auto-rules", device=device)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            ms[backend] = statistics.median(walls[1:])
+        if ms["device-batched"] < min(ms["host"], ms["device"]):
+            ahead.append(b)
+        parts.append(f"batch {b}: " + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items()))
+    line = ("Signature.batch_verify: " + "; ".join(parts) + "; "
+            + (f"device-batched ahead from batch {ahead[0]}" if ahead
+               else "device-batched ahead at no batch") + f" [{card}]")
+    print(line, flush=True)
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="the smallest shapes only")
@@ -244,10 +292,12 @@ def main(argv=None) -> int:
         read_range(card, (2,), (2,))
         read_defer(card, read_shuffle(card, (3,), (2,), (2,), (1, 2)), (1, 2), (8,),
                    TX_SHAPES[:1])
+        read_schnorr(card, SCHNORR_BATCHES[:1])
     else:
         read_range(card, RANGE_MS, RANGE_BATCHES)
         read_defer(card, read_shuffle(card, SHUFFLE_MS, SHUFFLE_BATCHES, VERIFY_BATCHES,
                                       DEFER_PROOFS), DEFER_PROOFS)
+        read_schnorr(card)
     print(f"auto_rules: done in {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 

@@ -15,6 +15,10 @@ from typing import Optional
 from ..ops import exact as ex
 from ..accounts.transcript import Transcript, SeededRng
 
+#: the fewest signatures that Signature.batch_verify's "auto" sends to the
+#: "device-batched" program (see its docstring)
+AUTO_DEVICE_BATCHED_MIN = 256
+
 
 @dataclass(frozen=True)
 class VerificationKey:
@@ -98,17 +102,37 @@ class Signature:
         (BASELINE config 3: batched Schnorr verification; three terms a
         signature, coalesced on the shared points).
 
-        backend: that of ``DeferredPointChecks.verify``: "device" (the MSM
-        kernels on ``device``), "host" (the C++ curve's Pippenger),
-        "sharded" (the MSM's point axis split over the ranks of ``mesh``, a
-        ``parallel.Mesh``; every rank replays every transcript) or "auto"
-        (``device`` resolved first, so the default raises without a GPU;
-        then by the coalesced term count)."""
+        backend: "device-batched" (``primitives.device_schnorr``: the
+        transcripts, decodes, scalar arithmetic and the MSM of every
+        signature as one program on ``device``, the host transcripts' states
+        carried over), or that of ``DeferredPointChecks.verify`` after a
+        host replay: "device" (the MSM kernels on ``device``), "host" (the
+        C++ curve's Pippenger), "sharded" (the MSM's point axis split over
+        the ranks of ``mesh``, a ``parallel.Mesh``; every rank replays every
+        transcript) or "auto" (``device`` resolved first, so the default
+        raises without a GPU; "device-batched" from
+        :data:`AUTO_DEVICE_BATCHED_MIN` signatures, else
+        ``DeferredPointChecks.verify``'s rule on the coalesced term
+        count). On the H100 (host / device / device-batched ms a call, one
+        distinct key a signature, ``auto_rules.read_schnorr``, median of
+        two after a warm call) the three were even at 64 signatures
+        (10.9 / 10.6 / 10.7), and "device-batched" led from 256 (29.1 /
+        23.1 / 8.8), 1,024 (192.1 / 99.2 / 9.2), 4,096 (492.9 / 404.2 /
+        19.3) and 21,845 (2,376.0 / 2,592.2 / 39.7; PERF.md §6)."""
         from ..accounts.deferred import DeferredPointChecks
         from ..device import resolve_device
 
-        if backend in ("auto", "device"):
+        items = list(items)
+        if backend in ("auto", "device", "device-batched"):
             resolve_device(device)   # before the transcript replay
+        if backend == "auto" and len(items) >= AUTO_DEVICE_BATCHED_MIN:
+            backend = "device-batched"
+        if backend == "device-batched":
+            from .device_schnorr import verify_transcripts
+
+            if not verify_transcripts(items, seed=seed, device=device):
+                raise ValueError("Error::InvalidSignature (device-batched)")
+            return
         defer = DeferredPointChecks(seed)
         for sig, transcript, vk in items:
             sig.verify_deferred(transcript, vk, defer)

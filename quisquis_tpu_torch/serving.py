@@ -438,6 +438,88 @@ def _build_chunk(reqs: List[BuildRequest], seed: bytes) -> List[WirePair]:
     return out
 
 
+class SignatureVerificationService:
+    """Verification of zkSchnorr signed messages (BASELINE.json config 3: a
+    validator checks the signature of every account that authorises a
+    spend; reference src/transaction/signature.rs:83-137).
+
+    Wire items are ``utils.serde.signed_message_to_bytes`` records, each
+    a signature by its key over ``(label, message)`` with messages of
+    ``message_len`` bytes. `backend`: "device-batched" runs the whole call
+    as one device program (``primitives.device_schnorr``: transcripts,
+    decodes, scalar arithmetic and one MSM of three terms a signature on
+    `device`), its input cut from the joined records by numpy; "host"
+    replays each transcript here and checks the batch with one MSM on the
+    C++ curve (``Signature.batch_verify(backend="host")``). No processes
+    are spawned. `device` is resolved (the default raises without a GPU)
+    and the kernels built in ``__init__`` for "device-batched".
+
+    ``verify_wire`` accepts a call whole or raises ValueError.
+    """
+
+    def __init__(self, backend: str = "device-batched", *, label: bytes, message_len: int = 32,
+                 seed: Optional[bytes] = None, device="cuda"):
+        if backend not in ("device-batched", "host"):
+            raise ValueError(f"unknown signature backend {backend!r}")
+        self.backend = backend
+        self.label = bytes(label)
+        self.message_len = int(message_len)
+        # `seed` pins the weights for tests only, as in _PoolService
+        self._seed = bytes(seed) if seed is not None else None
+        self._ctr = itertools.count()
+        self.device = _prepare_device(backend == "device-batched", device)
+
+    def _call_seed(self) -> Optional[bytes]:
+        if self._seed is None:
+            return None
+        return hashlib.sha512(self._seed + b"sig" + next(self._ctr).to_bytes(8, "little")
+                              ).digest()[:32]
+
+    @span("serving.schnorr.verify_wire")
+    def verify_wire(self, blobs: Sequence[bytes]) -> int:
+        """Verify signed-message records; returns their count. The span
+        ``serving.schnorr.decode`` holds the host's cut of the records, and
+        ``serving.schnorr.verify_wire``'s own time the rest of the host's
+        part (the release of the call's buffers)."""
+        import numpy as np
+
+        from .utils import serde
+
+        width = serde.SIGNED_MESSAGE_HEAD + self.message_len
+        with span("serving.schnorr.decode"):
+            if not len(blobs):
+                return 0
+            if set(map(len, blobs)) != {width}:
+                raise ValueError(f"a signed message is not {width} bytes")
+            if self.backend == "device-batched":
+                rec = np.frombuffer(b"".join(blobs), np.uint8).reshape(len(blobs), width)
+            else:
+                items = [serde.signed_message_from_bytes(b, self.message_len) for b in blobs]
+        if self.backend == "device-batched":
+            from .primitives.device_schnorr import verify_messages
+
+            if not verify_messages(self.label, rec[:, 0:32], rec[:, 32:64], rec[:, 64:96],
+                                   rec[:, 96:128], rec[:, 128:], seed=self._call_seed(),
+                                   device=self.device):
+                raise ValueError("Batched signature verification failed")
+            return len(blobs)
+        from .primitives.schnorr import Signature
+
+        Signature.batch_verify([(sig, Signature._transcript_for_message(self.label, msg), vk)
+                                for vk, sig, msg in items], backend="host",
+                               seed=self._call_seed(), device="cpu")
+        return len(items)
+
+    def close(self) -> None:
+        """Nothing to release (no pool): for the services' common use."""
+
+    def __enter__(self) -> "SignatureVerificationService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 class RangeProvingService:
     """Batched range-proof proving service (the prove-side device path).
 

@@ -339,6 +339,43 @@ def shuffle_entry_from_bytes(data: bytes):
     return proof, statement, inputs, outputs
 
 
+# -- signed messages ----------------------------------------------------------
+
+#: the bytes of a signed message's record before its message: vk.g, vk.h, R, s
+SIGNED_MESSAGE_HEAD = 128
+
+
+def signed_message_to_bytes(vk, sig, message: bytes) -> bytes:
+    """One zkSchnorr signed message as a fixed-size record:
+    ``vk.g || vk.h || R || s || message`` (32-byte points and scalar, then
+    the message; the record's length is 128 plus the message's, which the
+    service fixes). The form that ``serving.SignatureVerificationService``
+    takes."""
+    w = Writer()
+    for p in (vk.g, vk.h, sig.R):
+        w.point(p)
+    w.scalar(sig.s)
+    w.parts.append(bytes(message))
+    return w.bytes_()
+
+
+def signed_message_from_bytes(data: bytes, message_len: int = 32):
+    """-> (VerificationKey, Signature, message) of a record of
+    :func:`signed_message_to_bytes` whose message is `message_len` bytes.
+    ``s`` is read modulo l, as ``Signature.from_bytes`` reads it; a short
+    record or trailing bytes raise ValueError."""
+    from ..primitives.schnorr import Signature, VerificationKey
+
+    if len(data) < SIGNED_MESSAGE_HEAD + message_len:
+        raise ValueError("truncated signed message")
+    if len(data) > SIGNED_MESSAGE_HEAD + message_len:
+        raise ValueError("trailing bytes in signed message")
+    r = Reader(bytes(data))
+    g, h, R = r.point(), r.point(), r.point()
+    s = r.scalar()
+    return VerificationKey(g, h), Signature(s, R), r.data[r.off:]
+
+
 # -- transactions -------------------------------------------------------------
 
 def _w_account(w: Writer, acc) -> None:

@@ -58,13 +58,13 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     line = proc.stdout.strip().splitlines()[-1]
     assert line.endswith("FORBIDDEN []"), line
-    assert int(line.split()[1]) >= 68
+    assert int(line.split()[1]) >= 73
     # an import inside a function runs only when the function does: no source
     # line of the port imports either, wherever it stands
     forbidden = re.compile(r"^\s*(import|from)\s+(jax|quisquis_tpu)(\.|\s|$)", re.M)
     sources = glob.glob(os.path.join(REPO, "quisquis_tpu_torch", "**", "*.py"), recursive=True)
     sources.append(os.path.join(REPO, "chip_smoke.py"))
-    assert len(sources) >= 70
+    assert len(sources) >= 75
     for path in sources:
         with open(path) as f:
             found = forbidden.search(f.read())
