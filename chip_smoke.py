@@ -65,7 +65,10 @@ Phases, each printed on its own line:
      of each call;
  11. the shuffle verifier at full width: DeviceShuffleVerifier(m=8,
      batch=16) on 16 distinct proofs over one 64-account anonymity set
-     (phase 10's workers made them): the honest batch verifies; one lane
+     (phase 10's workers made them): the honest batch verifies, replayed
+     from the CUDA graphs that warmup() captured (only the two MSMs'
+     stages are launched), and on a fresh verifier's eager first call
+     (every kernel launched); one lane
      tampered (a point, a Hadamard scalar, the DDH response, a
      multi-exponentiation commitment, the product statement, swapped
      accounts) is rejected by the device and by the host verifier;
@@ -674,6 +677,7 @@ def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
     from quisquis_tpu_torch.ops import point as pt
     from quisquis_tpu_torch.accounts.deferred import DeferredPointChecks, DeviceBatchCollector
     from quisquis_tpu_torch.bulletproofs.device_verify import DeviceRangeVerifier
+    from quisquis_tpu_torch.shuffle import device_verify as sdv
     from quisquis_tpu_torch.shuffle.device_verify import DeviceShuffleVerifier
     from quisquis_tpu_torch.transaction import (batch_create_transactions,
                                                 batch_verify_transactions, verify_transaction)
@@ -691,6 +695,7 @@ def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
                                   device=h.dev)
 
     h.sync()
+    sdv._VERIFIER_CACHE.clear()   # fresh shuffle verifiers: a frame's first call runs eagerly
     cb.reset_launches()
     verify(items, "device-batched")   # raises unless every transaction verifies
     launches = {k: v for k, v in cb.LAUNCHES.items() if v}
@@ -734,6 +739,7 @@ def phase_tx_verify(h, built, n_tx=TX_VERIFY, n_accounts=TX_VERIFY_ACCOUNTS,
                                   (kp, "msm_tail", "tail"),
                                   (DeviceShuffleVerifier, "verify", "shuffle verifier"),
                                   (DeviceRangeVerifier, "verify", "range verifier")])
+    sdv._VERIFIER_CACHE.clear()   # eager again: replayed graphs call no kernel wrapper
     cb.reset_launches()
     try:
         verify(items, "device-batched")
@@ -904,6 +910,7 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
     from quisquis_tpu_torch.ops import point as pt
     from quisquis_tpu_torch.primitives.keys import RistrettoPublicKey, RistrettoSecretKey
     from quisquis_tpu_torch.primitives.schnorr import Signature, VerificationKey
+    from quisquis_tpu_torch.shuffle import device_verify as sdv
     from quisquis_tpu_torch.utils import serde
     from quisquis_tpu_torch.utils.metrics import metrics
 
@@ -931,6 +938,7 @@ def phase_services(h, entries, items, drv, workers=None, n_sigs=SCHNORR_SIGS,
         parts, kept = [], None
         for svc in svcs:
             h.sync()
+            sdv._VERIFIER_CACHE.clear()   # the shuffle verifiers' first calls run eagerly
             cb.reset_launches()
             if svc.backend == "device":
                 seen, restore = h.keep_calls([(qmsm, "msm", "msm")])
@@ -2298,6 +2306,11 @@ def phases(pool) -> int:
     srng_w = SeededRng(seed=b"chip-smoke-shuffle-weights")
     cb.reset_launches()
     dsv.verify(entries, rng=srng_w)  # raises unless the batch verifies
+    replayed = {k: v for k, v in cb.LAUNCHES.items() if v}
+    check(replayed == {"msm_table": 2, "msm_acc": 2, "msm_tail": 2},
+          f"a replayed verify launches its two MSMs alone: {replayed}")
+    cb.reset_launches()
+    DeviceShuffleVerifier(m8, b8).verify(entries, rng=srng_w)  # a first call runs eagerly
     sh_launches = {k: v for k, v in cb.LAUNCHES.items() if v}
     check(set(sh_launches) == {*SHUFFLE_KERNELS, *CODEC},
           f"shuffle verify launches {sh_launches}")
@@ -2357,7 +2370,7 @@ def phases(pool) -> int:
 
     kp.scalar_mul, qmsm.msm_rows, qmsm.msm, kk.f1600 = keep_sm, keep_rows, keep_msm, keep_f1600
     try:
-        dsv.verify(entries, rng=srng_w)
+        DeviceShuffleVerifier(m8, b8).verify(entries, rng=srng_w)   # eager: every wrapper called
     finally:
         kp.scalar_mul, qmsm.msm_rows, qmsm.msm, kk.f1600 = real_sm, real_rows, real_msm, real_f1600
     nib_p, pts_p = seen["scalar_mul"]

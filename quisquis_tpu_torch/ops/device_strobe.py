@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..utils.metrics import span
+from ..utils.staging import hold
 from .device_keccak import f1600
 from .strobe import STROBE_R, Strobe128, _FLAG_A, _FLAG_C, _FLAG_I, _FLAG_M
 
@@ -51,8 +52,14 @@ def snapshot_host_strobe(strobe) -> tuple:
 
 
 @functools.lru_cache(maxsize=4096)
-def _bytes_const(data: bytes, device: torch.device) -> torch.Tensor:
+def _bytes_tensor(data: bytes, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.frombuffer(data, np.uint8).copy(), device=device)
+
+
+def _bytes_const(data: bytes, device: torch.device) -> torch.Tensor:
+    """`data` as a uint8 tensor on `device`, made once while the cache keeps
+    it; a CUDA graph captured meanwhile keeps it too (``staging.hold``)."""
+    return hold(_bytes_tensor(data, device))
 
 
 def _keep_mask(pos: int, count: int, device: torch.device) -> torch.Tensor:

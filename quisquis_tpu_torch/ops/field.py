@@ -126,6 +126,13 @@ def _bias(device) -> torch.Tensor:
     return _limb_const(tuple(BIAS), torch.device(device))
 
 
+@functools.lru_cache(maxsize=None)
+def constant(x: int, device: torch.device) -> torch.Tensor:
+    """The canonical limbs of x mod p, int32 [10] on `device`: uploaded once
+    a device and shared, so no caller writes into it."""
+    return to_tensor(from_int(x), device)
+
+
 # ---------------------------------------------------------------------------
 # host <-> tensor conversion
 # ---------------------------------------------------------------------------
@@ -381,11 +388,8 @@ def from_bytes_tensor(b: torch.Tensor):
 # sqrt_ratio (RFC 9496 §4.2), batched
 # ---------------------------------------------------------------------------
 
-SQRT_M1_LIMBS = from_int(ex.SQRT_M1)
-
-
 def sqrt_ratio_m1(u: torch.Tensor, v: torch.Tensor):
-    sqrt_m1 = to_tensor(SQRT_M1_LIMBS, u.device)
+    sqrt_m1 = constant(ex.SQRT_M1, u.device)
     v3 = mul(square(v), v)
     v7 = mul(square(v3), v)
     r = mul(mul(u, v3), pow_p58(mul(u, v7)))

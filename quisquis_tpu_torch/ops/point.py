@@ -44,10 +44,6 @@ class ExtPoint(NamedTuple):
         return self.x.device
 
 
-D_LIMBS = fe.from_int(ex.D)
-D2_LIMBS = fe.from_int(ex.D2)
-
-
 def identity(shape=(), device="cuda") -> ExtPoint:
     z, o = fe.zeros(shape, device), fe.ones(shape, device)
     return ExtPoint(z, o, o.clone(), z.clone())
@@ -81,7 +77,7 @@ def to_exact_batch(p: ExtPoint):
 
 def add(p: ExtPoint, q: ExtPoint, need_t: bool = True) -> ExtPoint:
     m, a, s = fe.mul, fe.add, fe.sub
-    d2 = fe.to_tensor(D2_LIMBS, p.device)
+    d2 = fe.constant(ex.D2, p.device)
     A = m(s(p.y, p.x), s(q.y, q.x))
     B = m(a(p.y, p.x), a(q.y, q.x))
     C = m(m(p.t, d2), q.t)
@@ -196,7 +192,7 @@ class CachedPoint(NamedTuple):
 
 def to_cached(p: ExtPoint) -> CachedPoint:
     return CachedPoint(fe.sub(p.y, p.x), fe.add(p.y, p.x), p.z,
-                       fe.mul(p.t, fe.to_tensor(D2_LIMBS, p.device)))
+                       fe.mul(p.t, fe.constant(ex.D2, p.device)))
 
 
 def add_cached(p: ExtPoint, c: CachedPoint) -> ExtPoint:
@@ -361,12 +357,6 @@ def base_mul(nibbles: torch.Tensor) -> ExtPoint:
 # ristretto encode / decode (batched, RFC 9496 §4.3)
 # ---------------------------------------------------------------------------
 
-INVSQRT_A_MINUS_D_LIMBS = fe.from_int(ex.INVSQRT_A_MINUS_D)
-SQRT_AD_MINUS_ONE_LIMBS = fe.from_int(ex.SQRT_AD_MINUS_ONE)
-ONE_MINUS_D_SQ_LIMBS = fe.from_int(ex.ONE_MINUS_D_SQ)
-D_MINUS_ONE_SQ_LIMBS = fe.from_int(ex.D_MINUS_ONE_SQ)
-
-
 @span("ops.point.encode")
 def compress(p: ExtPoint) -> torch.Tensor:
     """Ristretto encode -> canonical field element s as limbs [..., 10]."""
@@ -379,10 +369,10 @@ def compress(p: ExtPoint) -> torch.Tensor:
     den1 = m(invsqrt, u1)
     den2 = m(invsqrt, u2)
     z_inv = m(m(den1, den2), t0)
-    sqrt_m1 = fe.to_tensor(fe.SQRT_M1_LIMBS, dev)
+    sqrt_m1 = fe.constant(ex.SQRT_M1, dev)
     ix0 = m(x0, sqrt_m1)
     iy0 = m(y0, sqrt_m1)
-    ench = m(den1, fe.to_tensor(INVSQRT_A_MINUS_D_LIMBS, dev))
+    ench = m(den1, fe.constant(ex.INVSQRT_A_MINUS_D, dev))
     rotate = fe.is_negative(m(t0, z_inv))
     x = fe.select(rotate, iy0, x0)
     y = fe.select(rotate, ix0, y0)
@@ -405,7 +395,7 @@ def decompress(s: torch.Tensor):
     u1 = s_(one, ss)
     u2 = a(one, ss)
     u2_sqr = m(u2, u2)
-    d = fe.to_tensor(D_LIMBS, s.device)
+    d = fe.constant(ex.D, s.device)
     v = s_(fe.neg(m(d, m(u1, u1))), u2_sqr)
     was_square, invsqrt = fe.invsqrt(m(v, u2_sqr))
     den_x = m(invsqrt, u2)
@@ -437,17 +427,17 @@ def map_to_point(t: torch.Tensor) -> ExtPoint:
     m, a, s_ = fe.mul, fe.add, fe.sub
     dev = t.device
     one = fe.ones(t.shape[:-1], dev)
-    d = fe.to_tensor(D_LIMBS, dev)
-    r = m(fe.to_tensor(fe.SQRT_M1_LIMBS, dev), m(t, t))
-    u = m(a(r, one), fe.to_tensor(ONE_MINUS_D_SQ_LIMBS, dev))
+    d = fe.constant(ex.D, dev)
+    r = m(fe.constant(ex.SQRT_M1, dev), m(t, t))
+    u = m(a(r, one), fe.constant(ex.ONE_MINUS_D_SQ, dev))
     v = m(s_(fe.neg(one), m(r, d)), a(r, d))
     was_square, s = fe.sqrt_ratio_m1(u, v)
     s_prime = fe.neg(fe.cabs(m(s, t)))
     s = fe.select(was_square, s, s_prime)
     c = fe.select(was_square, fe.neg(one), r)
-    n = s_(m(m(c, s_(r, one)), fe.to_tensor(D_MINUS_ONE_SQ_LIMBS, dev)), v)
+    n = s_(m(m(c, s_(r, one)), fe.constant(ex.D_MINUS_ONE_SQ, dev)), v)
     w0 = fe.mul_small(m(s, v), 2)
-    w1 = m(n, fe.to_tensor(SQRT_AD_MINUS_ONE_LIMBS, dev))
+    w1 = m(n, fe.constant(ex.SQRT_AD_MINUS_ONE, dev))
     w2 = s_(one, m(s, s))
     w3 = a(one, m(s, s))
     return ExtPoint(m(w0, w3), m(w2, w1), m(w1, w3), m(w0, w2))

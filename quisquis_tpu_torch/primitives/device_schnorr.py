@@ -54,6 +54,7 @@ from ..ops import point as pt
 from ..ops import scalar_field as sf
 from ..ops.device_strobe import DeviceStrobe, DeviceTranscript, snapshot_host_strobe
 from ..utils.metrics import metrics, span
+from ..utils.staging import Staging
 
 #: the transcript label of a signed message (``Signature.sign_message``)
 MESSAGE_TRANSCRIPT = b"ZkSchnorr.sign_message"
@@ -85,29 +86,19 @@ def _message_prefix(device: torch.device):
 
 
 @functools.lru_cache(maxsize=4)
-def _staging(lanes: int, width: int, device: torch.device):
-    """(host uint8 [lanes, width], device uint8 [lanes, width]) kept for a
-    shape: on CUDA the host buffer is pinned, so the upload is one copy of
-    fixed device time. A call holds ``_CALL`` from its upload to its
-    verdict, so the buffers are rewritten only once the call that read
-    them is done."""
-    host = torch.empty((lanes, width), dtype=torch.uint8)
-    if device.type == "cuda":
-        host = host.pin_memory()
-    return host, torch.empty((lanes, width), dtype=torch.uint8, device=device)
+def _staging(nbytes: int, device: torch.device) -> Staging:
+    """The staging buffers of a call's size, kept for it: on CUDA the host
+    buffer is pinned, so the upload is one copy of fixed device time. A
+    call holds ``_CALL`` from its upload to its verdict, so the buffers are
+    rewritten only once the call that read them is done."""
+    return Staging(nbytes, device)
 
 
 @span("dev.schnorr_verify.pack")
-def _upload(parts: Sequence[np.ndarray], device: torch.device) -> torch.Tensor:
-    """The uint8 [B, k_i] arrays of `parts`, side by side, as one upload:
-    uint8 [B, sum k_i] on the device."""
-    widths = [p.shape[1] for p in parts]
-    host, dev = _staging(parts[0].shape[0], sum(widths), device)
-    view, at = host.numpy(), 0
-    for p, k in zip(parts, widths):
-        view[:, at:at + k] = p
-        at += k
-    return dev.copy_(host, non_blocking=True)
+def _upload(parts: Sequence[np.ndarray], device: torch.device) -> list:
+    """The uint8 arrays of `parts` on the device, in their shapes, as one
+    upload."""
+    return _staging(sum(p.size for p in parts), device).put(parts)
 
 
 def _challenges(dt: DeviceTranscript, points: torch.Tensor) -> torch.Tensor:
@@ -175,13 +166,10 @@ def verify_messages(label: bytes, g: np.ndarray, h: np.ndarray, R: np.ndarray, s
     if lanes == 0:
         return True
     metrics.count("dev.schnorr_verify.lanes", lanes)
-    m = messages.shape[1]
     w = draw_weights(lanes, seed)
     with _CALL:
-        up = _upload([g, h, R, s, messages, w], dev)
-        dt = _message_transcript(bytes(label), up[:, 128:128 + m])
-        return _verdict([_terms(dt, up[:, :96].reshape(lanes, 3, 32), up[:, 96:128],
-                                up[:, 128 + m:])])
+        points, s, messages, w = _upload([np.stack([g, h, R], axis=1), s, messages, w], dev)
+        return _verdict([_terms(_message_transcript(bytes(label), messages), points, s, w)])
 
 
 @span("dev.schnorr_verify")
@@ -206,9 +194,9 @@ def verify_transcripts(items, seed: Optional[bytes] = None, device="cuda") -> bo
         groups.setdefault(snap[1:], []).append(i)
     w = draw_weights(lanes, seed)
     with _CALL:
-        up = _upload([np.frombuffer(wire, np.uint8).reshape(lanes, 128), states, w], dev)
-        points, s, st, w = (up[:, :96].reshape(lanes, 3, 32), up[:, 96:128], up[:, 128:328],
-                            up[:, 328:])
+        wire, st, w = _upload([np.frombuffer(wire, np.uint8).reshape(lanes, 128), states, w],
+                              dev)
+        points, s = wire[:, :96].reshape(lanes, 3, 32), wire[:, 96:128]
         parts = []
         for frame, idx in groups.items():
             rows = slice(None) if len(groups) == 1 else torch.as_tensor(idx, device=dev)

@@ -22,6 +22,17 @@ one ``scalar_mul`` over the B (3m + 3) per-lane products, one ``msm_rows``
 over the 6B statement aggregates of N + 1 points, and one ``msm`` over the
 19 weighted checks of every lane.
 
+The program is three segments around its two MSMs (:meth:`_segments`): A
+from the upload to the rows MSM's inputs, B from the rows to the final
+MSM's inputs, C from the final MSM's point to the verdict. On CUDA each
+transcript frame (the STROBE positions that a batch's transcript
+histories fix) runs eagerly the first time it is seen; the second time
+the segments are captured as three CUDA graphs over the instance's static
+input buffers (:class:`GraphCache`), and from then on each call replays
+them: one pinned upload, three graph launches and the two MSMs, issued
+eagerly between them, so that every MSM call still passes through
+``ops.msm``. On the CPU the segments always run eagerly.
+
 It accepts exactly what the host verifier (ShuffleProof.verify) accepts
 (tests/test_torch_shuffle_verify.py). The wire-static structural checks
 (lengths, pinned identity commitments, omega uniqueness) run at pack time
@@ -33,7 +44,8 @@ from __future__ import annotations
 
 import math
 import os
-from typing import List
+import threading
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -51,9 +63,17 @@ from ..ops import scalar_field as sf
 from ..ops.device_strobe import DeviceStrobe, DeviceTranscript, snapshot_host_strobe
 from ..primitives.keys import RistrettoPublicKey
 from ..primitives.pedersen import default_pedersen_gens, vector_pedersen_gens
-from ..utils.metrics import span
+from ..utils.metrics import metrics, span
+from ..utils.staging import GraphCache, Staging, holding
 
 L = ex.L
+
+#: the transcript frames of one verifier instance that keep captured graphs
+#: (each holds its graphs' memory); the least recently run is let go first.
+#: A standalone shuffle is one frame; a transaction's input and output
+#: shuffles are two (a block of 3x3 transactions runs its m = 3 instance
+#: once on each), so four keep two transaction shapes of one set size
+GRAPH_FRAMES = 4
 
 
 def _cols(p: pt.ExtPoint, a: int, b: int) -> pt.ExtPoint:
@@ -75,6 +95,7 @@ class _LaneChecks:
         self._ctr = 0
         self._scal: List[torch.Tensor] = []
         self._pts: List[pt.ExtPoint] = []
+        self._terms = None
 
     def check(self, scalars: torch.Tensor, points: pt.ExtPoint) -> None:
         w = self._w[:, self._ctr]
@@ -82,12 +103,39 @@ class _LaneChecks:
         self._scal.append(sf.mul(scalars, w[:, None, :]))
         self._pts.append(points)
 
+    def terms(self):
+        """(nibbles, points): every check of every lane as the terms of one
+        MSM, at its own term count; made at the first call."""
+        if self._terms is None:
+            scal = torch.cat([s.reshape(-1, sf.NLIMBS) for s in self._scal])
+            pts = _ext_concat([pt.ExtPoint(*(c.reshape(-1, fe.NLIMBS) for c in p))
+                               for p in self._pts])
+            self._terms = sf.to_nibbles(scal), pts
+        return self._terms
+
     def verify_msm(self) -> torch.Tensor:
-        """One MSM over every check of every lane, at its own term count."""
-        scal = torch.cat([s.reshape(-1, sf.NLIMBS) for s in self._scal])
-        pts = _ext_concat([pt.ExtPoint(*(c.reshape(-1, fe.NLIMBS) for c in p))
-                           for p in self._pts])
-        return pt.is_identity(qmsm.msm(sf.to_nibbles(scal), pts))
+        """One MSM over every check of every lane: is it the identity? (The
+        replayed program runs the same MSM, then the identity test inside
+        its last graph.)"""
+        return pt.is_identity(qmsm.msm(*self.terms()))
+
+
+class _Graphs(NamedTuple):
+    """A frame's program captured: segment A's graph and the rows MSM's
+    inputs it writes; the rows buffer [4, 6B, 10] that segment B's graph
+    reads and the final MSM's inputs it writes; the final MSM's point
+    buffer [4, 10] that segment C's graph reads and the verdict it
+    writes; and every constant of a bounded cache that they read."""
+
+    a: torch.cuda.CUDAGraph
+    rows_in: tuple
+    rows: torch.Tensor
+    b: torch.cuda.CUDAGraph
+    final_in: tuple
+    total: torch.Tensor
+    c: torch.cuda.CUDAGraph
+    ok: torch.Tensor
+    held: tuple     # the cached constants the graphs read (``staging.holding``)
 
 
 class DeviceShuffleVerifier:
@@ -129,6 +177,9 @@ class DeviceShuffleVerifier:
                                base_pk.grsk_point, c_minus_one, sum_g])
         self._statics = pt.from_exact_batch(self._static_pts, self.device)
         self._row_index = sf.scalars_to_dev([i + 1 for i in range(self.N)], self.device)
+        self._graphs = GraphCache(GRAPH_FRAMES)
+        self._staging = None    # a Staging: every call's inputs
+        self._lock = threading.Lock()   # a call holds the staging buffers to its verdict
 
     # ---------------------------------------------------------------- layout
 
@@ -212,10 +263,27 @@ class DeviceShuffleVerifier:
     # ---------------------------------------------------------------- device
 
     def _program(self, comp, scal, weights, states, frame) -> torch.Tensor:
-        """comp: uint8 [B, npoints, 32] wire points; scal: uint8
+        """The whole program, eagerly: segment A, the rows MSM, segment B,
+        the final MSM and its identity test, segment C (arguments as
+        :meth:`_segments`). Returns a 0-d bool tensor."""
+        steps = self._segments(comp, scal, weights, states, frame)
+        rows = qmsm.msm_rows(*next(steps))
+        checks = steps.send(rows)
+        return steps.send(checks.verify_msm())
+
+    def _segments(self, comp, scal, weights, states, frame):
+        """The program's three segments, as a generator: segment A yields
+        the rows MSM's inputs (nibbles [6B, N+1, 64], points [6B, N+1]);
+        sent that MSM's result (points [6B]), segment B yields the lanes'
+        point checks (a ``_LaneChecks`` whose ``terms()``, the final MSM's
+        inputs, it has made); sent whether their MSM is the identity (a 0-d
+        bool tensor), segment C yields the verdict, a 0-d bool tensor. No
+        segment fetches from the device or uploads to it.
+
+        comp: uint8 [B, npoints, 32] wire points; scal: uint8
         [B, nscalars, 32]; weights: uint8 [B, NCHECKS, 64] uniform bytes;
         states: uint8 [B, 200] STROBE states; frame: (pos, pos_begin,
-        cur_flags) of those states. Returns a 0-d bool tensor."""
+        cur_flags) of those states."""
         m, N = self.m, self.N
         B = comp.shape[0]
         dev = comp.device
@@ -429,7 +497,8 @@ class DeviceShuffleVerifier:
         ddh_pts = pts("ddh")
         g_row = cat([pts("in_g"), _cols(ddh_pts, 0, 1)])    # [B, N+1]
         h_row = cat([pts("in_h"), _cols(ddh_pts, 1, 2)])
-        rows = qmsm.msm_rows(
+        # ---------------- end of segment A: the rows MSM ----------------
+        rows = yield (
             sf.to_nibbles(row_scal).reshape(B * 6, N + 1, pt.NWINDOWS),
             pt.ExtPoint(*(torch.stack([g, h, g, h, g, h], dim=1).reshape(B * 6, N + 1, -1)
                           for g, h in zip(g_row, h_row))))
@@ -508,7 +577,11 @@ class DeviceShuffleVerifier:
             H_pt=H_pt, G_pts=G_pts, pc_B=pc_B, pc_Bb=pc_Bb, one=one)
 
         assert checks._ctr == self.NCHECKS, checks._ctr
-        return lane_ok.all() & checks.verify_msm()
+        checks.terms()
+        # ---------------- end of segment B: the final MSM ----------------
+        points_ok = yield checks
+        # ---------------- segment C: the verdict ----------------
+        yield lane_ok.all() & points_ok
 
     def _multiexpo(self, dt, checks, label, key, wire, pts, p_cA, vals, re0, re1,
                    rows0, rows1, H_pt, G_pts, pc_B, pc_Bb, one):
@@ -696,22 +769,71 @@ class DeviceShuffleVerifier:
         states, frame = self._states(transcripts)
         return comp, scal, states, frame
 
+    def _upload(self, *arrays) -> list:
+        """The uint8 arrays as views of the instance's one input buffer on
+        the device (the graphs' static inputs): one copy a call."""
+        if self._staging is None:   # the instance's shapes fix the size
+            self._staging = Staging(sum(a.size for a in arrays), self.device)
+        return self._staging.put(arrays)
+
+    def _capture(self, inputs, frame) -> _Graphs:
+        """Capture segments A, B and C over the static `inputs`, in one
+        memory pool (nothing runs: the caller replays them)."""
+        a, b, c = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        steps = self._segments(*inputs, frame)
+        rows, total = (torch.empty((4, *shape, fe.NLIMBS), dtype=torch.int32, device=self.device)
+                       for shape in ((6 * self.batch,), ()))
+        with span("dev.shuffle_verify.capture"), holding() as held:
+            with torch.cuda.graph(a, capture_error_mode="thread_local"):
+                rows_in = next(steps)
+            with torch.cuda.graph(b, pool=a.pool(), capture_error_mode="thread_local"):
+                final_in = steps.send(pt.ExtPoint(*rows.unbind(0))).terms()
+            with torch.cuda.graph(c, pool=a.pool(), capture_error_mode="thread_local"):
+                ok = steps.send(pt.is_identity(pt.ExtPoint(*total.unbind(0))))
+        metrics.count("dev.shuffle_verify.graph_captures")
+        return _Graphs(a, rows_in, rows, b, final_in, total, c, ok,
+                       tuple({id(t): t for t in held}.values()))
+
+    def _replay(self, g: _Graphs) -> torch.Tensor:
+        """The program by its graphs, the two MSMs eagerly between them;
+        each MSM's result enters the next graph by one device copy."""
+        with span("dev.shuffle_verify.replay"):
+            g.a.replay()
+        torch.stack(tuple(qmsm.msm_rows(*g.rows_in)), out=g.rows)
+        with span("dev.shuffle_verify.replay"):
+            g.b.replay()
+        torch.stack(tuple(qmsm.msm(*g.final_in)), out=g.total)
+        with span("dev.shuffle_verify.replay"):
+            g.c.replay()
+        return g.ok
+
     def _run(self, comp, scal, weights, states, frame) -> bool:
-        dev = self.device
-        ok = self._program(*(torch.as_tensor(a, device=dev)
-                             for a in (comp, scal, weights, states)), frame)
-        with span("dev.shuffle_verify.wait"):
-            return bool(ok)
+        metrics.count("dev.shuffle_verify.runs")
+        with self._lock:
+            inputs = self._upload(comp, scal, weights, states)
+            graphs, capture = (self._graphs.get(frame) if self.device.type == "cuda"
+                               else (None, False))
+            if capture:
+                graphs = self._capture(inputs, frame)
+                self._graphs.put(frame, graphs)
+            elif graphs is not None:
+                metrics.count("dev.shuffle_verify.graph_replays")
+            ok = self._program(*inputs, frame) if graphs is None else self._replay(graphs)
+            with span("dev.shuffle_verify.wait"):
+                return bool(ok)
 
     def warmup(self, transcripts=None) -> None:
-        """Build the kernels (on CUDA) and run the program once on zero
-        inputs, verdict discarded, so that the first batch pays no set-up.
-        Zero bytes decode as the identity point and the zero scalar."""
+        """Build the kernels (on CUDA) and run the program on zero inputs,
+        verdict discarded, so that the first batch pays no set-up: once on
+        the CPU, twice on CUDA (the second run captures the graphs of the
+        transcripts' frame). Zero bytes decode as the identity point and the
+        zero scalar."""
         B = self.batch
         states, frame = self._states(transcripts or self._default_transcripts())
-        self._run(np.zeros((B, self._npoints, 32), np.uint8),
-                  np.zeros((B, self._nscalars, 32), np.uint8),
-                  np.zeros((B, self.NCHECKS, 64), np.uint8), states, frame)
+        for _ in range(2 if self.device.type == "cuda" else 1):
+            self._run(np.zeros((B, self._npoints, 32), np.uint8),
+                      np.zeros((B, self._nscalars, 32), np.uint8),
+                      np.zeros((B, self.NCHECKS, 64), np.uint8), states, frame)
 
     def verify(self, entries, transcripts=None, rng=None) -> None:
         """entries: (proof, statement, input accounts, output accounts) x B.

@@ -256,6 +256,128 @@ def test_shuffle_verifier_accepts_and_rejects(dev):
         dsv.verify(bad, rng=SeededRng(seed=b"w"))
 
 
+def _accepts(dsv, entries, seed: bytes) -> bool:
+    from quisquis_tpu_torch.accounts.transcript import SeededRng
+    try:
+        dsv.verify(entries, rng=SeededRng(seed=seed))
+    except ValueError:
+        return False
+    return True
+
+
+def test_shuffle_verifier_replays_its_graphs(dev, monkeypatch):
+    """warmup() captures the program of the standalone frame; then an
+    honest, a tampered, an honest and another honest batch replay it with
+    their own inputs and fresh weights (True, False, True, True), each
+    verdict equal to the eager program's on the same inputs, and each call
+    runs ops.msm.msm_rows and ops.msm.msm once, at the eager row sizes."""
+    import dataclasses
+    import os
+    from quisquis_tpu_torch.shuffle.device_verify import DeviceShuffleVerifier
+    from quisquis_tpu_torch.utils.metrics import metrics
+    m, B = 3, 4
+    entries = _port_shuffles(b"cuda-shuffle-graph", m, 2 * B)
+    honest, honest2 = entries[:B], entries[B:]
+    p, st, ins, outs = honest[2]
+    tampered = list(honest)
+    tampered[2] = (dataclasses.replace(p, ddh_proof=dataclasses.replace(
+        p.ddh_proof, z=(p.ddh_proof.z + 1) % ex.L)), st, ins, outs)
+    seen = []
+    for name in ("msm_rows", "msm"):
+        def recorded(nibbles, points, _real=getattr(qmsm, name), _name=name):
+            seen.append((_name, tuple(nibbles.shape)))
+            return _real(nibbles, points)
+        monkeypatch.setattr(qmsm, name, recorded)
+    dsv = DeviceShuffleVerifier(m, B)
+    metrics.reset()
+    dsv.warmup()
+    assert metrics.counters["dev.shuffle_verify.graph_captures"] == 1
+    assert seen[-1][0] == "msm"
+    n_final = seen[-1][1][0]
+    for i, (batch, want) in enumerate([(honest, True), (tampered, False), (honest, True),
+                                       (honest2, True)]):
+        seen.clear()
+        launched = dict(kp.LAUNCHES)
+        assert _accepts(dsv, batch, b"graph-%d" % i) is want
+        assert metrics.counters["dev.shuffle_verify.graph_replays"] == i + 1
+        # replayed: the kernels inside the graphs are not launched again
+        assert all(kp.LAUNCHES[k] == launched[k] for k in ("scalar_mul", "keccak_f1600",
+                                                           "ristretto_decode",
+                                                           "ristretto_encode"))
+        replayed = list(seen)
+        comp, scal, states, frame = dsv._pack(batch, None)
+        weights = np.frombuffer(os.urandom(B * dsv.NCHECKS * 64), np.uint8).reshape(
+            B, dsv.NCHECKS, 64).copy()
+        seen.clear()
+        assert bool(dsv._program(*dsv._upload(comp, scal, weights, states), frame)) is want
+        assert replayed == seen == [("msm_rows", (6 * B, m * m + 1, 64)),
+                                    ("msm", (n_final, 64))]
+    assert metrics.counters["dev.shuffle_verify.graph_captures"] == 1
+
+
+def test_replayed_graphs_keep_their_constants(dev):
+    """The graphs read the STROBE constants by address: after the bounded
+    cache that made them lets them all go and their memory is handed out
+    again, filled with other bytes, a replay still accepts an honest batch
+    and rejects a tampered one."""
+    import dataclasses
+    import gc
+    from quisquis_tpu_torch.ops import device_strobe
+    from quisquis_tpu_torch.shuffle.device_verify import DeviceShuffleVerifier
+    from quisquis_tpu_torch.utils.metrics import metrics
+    m, B = 2, 2
+    honest = _port_shuffles(b"cuda-shuffle-graph-consts", m, B)
+    p, st, ins, outs = honest[1]
+    tampered = [honest[0], (dataclasses.replace(p, ddh_proof=dataclasses.replace(
+        p.ddh_proof, z=(p.ddh_proof.z + 1) % ex.L)), st, ins, outs)]
+    dsv = DeviceShuffleVerifier(m, B)
+    metrics.reset()
+    dsv.warmup()
+    assert metrics.counters["dev.shuffle_verify.graph_captures"] == 1
+    torch.cuda.synchronize()
+    device_strobe._bytes_tensor.cache_clear()
+    gc.collect()
+    # every small block the allocator has free, filled with 0xff: it takes
+    # new memory from the card only once none is left
+    reserved, filler = torch.cuda.memory_reserved(), []
+    while torch.cuda.memory_reserved() == reserved and len(filler) < 1 << 20:
+        filler.append(torch.full((512,), 255, dtype=torch.uint8, device=dev))
+    assert torch.cuda.memory_reserved() > reserved
+    torch.cuda.synchronize()
+    assert _accepts(dsv, honest, b"consts-0") is True
+    assert _accepts(dsv, tampered, b"consts-1") is False
+    assert _accepts(dsv, honest, b"consts-2") is True
+    assert metrics.counters["dev.shuffle_verify.graph_replays"] == 3
+    del filler
+
+
+def test_replayed_shuffle_call_issues_few_launches(dev):
+    """A replayed m = 8, B = 16 call under torch.profiler: three graph
+    launches and fewer than 100 runtime launches in all (the custom
+    kernels' launches counted once more from the port's counter, in case
+    the profiler misses a library's own runtime calls)."""
+    from quisquis_tpu_torch.shuffle.device_verify import DeviceShuffleVerifier
+    dsv = DeviceShuffleVerifier(8, 16)
+    dsv.warmup()
+    states, frame = dsv._states(dsv._default_transcripts())
+    inputs = (np.zeros((16, dsv._npoints, 32), np.uint8),
+              np.zeros((16, dsv._nscalars, 32), np.uint8),
+              np.zeros((16, dsv.NCHECKS, 64), np.uint8), states, frame)
+    torch.cuda.synchronize()
+    launched = dict(kp.LAUNCHES)
+    P = torch.profiler
+    with P.profile(activities=[P.ProfilerActivity.CPU, P.ProfilerActivity.CUDA]) as prof:
+        dsv._run(*inputs)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                          "cudaGraphLaunch", "cuGraphLaunch")}
+    custom = sum(kp.LAUNCHES[k] - launched[k] for k in kp.LAUNCHES)
+    assert calls.get("cudaGraphLaunch", 0) + calls.get("cuGraphLaunch", 0) == 3, calls
+    assert custom == 6                      # the two MSMs' three stages
+    assert sum(calls.values()) + custom < 100, (calls, custom)
+
+
 def test_sigma_device_functions_equal_host(dev):
     from quisquis_tpu_torch.accounts import device_verifier as dvf
     from quisquis_tpu_torch.accounts.accounts import Account
